@@ -1,0 +1,103 @@
+"""``rank_reduce``: the splat reduction over a sorted splat stream.
+
+    out[t, :C] = sum_{j in run t} round_dtype(g[j, :C] * w_j)
+    out[t, C]  = sum_{j in run t} w_j             (density, if with_weights)
+    w_j        = g[j, C + rid[j]]
+
+Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``blocked_rank_partial``
+(:735; ``pallas_call`` :763, body ``_rank_partial_kernel`` :547) together
+with ``segment._combine`` (:247-314): only the per-vertex sums are
+observable, so the partial and combine stages fuse into one deterministic
+segmented sum.  On CUDA tensors the wrapper launches
+``csrc/rank_reduce.cu``; on CPU tensors it runs :func:`rank_reduce_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import plain_forced
+from ._build import check, load
+
+__all__ = ["rank_reduce", "rank_reduce_plain"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _stream_products(g, rid, c, with_weights):
+    """(M, C[+1]) stream-dtype products and weights."""
+    w = torch.gather(g[:, c:], 1, rid.long()[:, None])         # exact select
+    sv = g[:, :c] * w                                           # rounded
+    if with_weights:
+        sv = torch.cat([sv, w], dim=1)
+    return sv
+
+
+def rank_reduce_plain(g, rid, start, end, c, with_weights=False):
+    """Plain PyTorch version: run sums as float64 prefix differences.
+
+    The float64 prefix keeps each run's sum exact to far below float32
+    resolution, so this version is a deterministic reference, not a copy of
+    the kernel's summation order.
+    """
+    sv = _stream_products(g, rid, c, with_weights).to(torch.float64)
+    csum = torch.cat([sv.new_zeros(1, sv.shape[1]), torch.cumsum(sv, dim=0)])
+    s = start.long().clamp(0, g.shape[0])
+    e = torch.maximum(end.long().clamp(0, g.shape[0]), s)
+    return (csum[e] - csum[s]).to(torch.float32)
+
+
+def _check_args(g, rid, start, end, c):
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"stream must be float32 or bfloat16, got {g.dtype}")
+    if g.dim() != 2 or not 0 <= c < g.shape[1]:
+        raise ValueError(f"expected g (M, C + R) with R >= 1, got "
+                         f"{tuple(g.shape)} and C = {c}")
+    for name, t, n in (("rid", rid, g.shape[0]), ("start", start, None),
+                       ("end", end, start.shape[0])):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if n is not None and t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
+    for t in (g, rid, start, end):
+        if t.device != g.device:
+            raise ValueError("all arguments must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("arguments must be contiguous")
+
+
+def rank_reduce(g: torch.Tensor,       # (M, C + R) sorted stream
+                rid: torch.Tensor,     # (M,) int32 weight lane per entry
+                start: torch.Tensor,   # (T,) int32 run starts
+                end: torch.Tensor,     # (T,) int32 run ends
+                c: int,
+                with_weights: bool = False) -> torch.Tensor:
+    """Per-target weighted run sums -> (T, C) or (T, C + 1) float32."""
+    if g.device.type == "cpu" or plain_forced():
+        return rank_reduce_plain(g, rid, start, end, c, with_weights)
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    _check_args(g, rid, start, end, c)
+    m, cr = g.shape
+    t = start.shape[0]
+    out = torch.empty((t, c + int(with_weights)), dtype=torch.float32,
+                      device=g.device)
+    lib = load("rank_reduce")
+    fn = lib.hpl_rank_reduce
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = fn(g.data_ptr(), m, cr, c, rid.data_ptr(), start.data_ptr(),
+            end.data_ptr(), t, int(with_weights), out.data_ptr(),
+            _DTYPES[g.dtype], stream)
+    check(lib, rc, "rank_reduce launch")
+    rank_reduce.launches += 1
+    return out
+
+
+rank_reduce.launches = 0

@@ -1,0 +1,151 @@
+"""HPLFlowNet: the full 7-scale scene-flow model (forward).
+
+Port of ``hplflownet_tpu/models/hplflownet.py``: a 3-layer point MLP, a
+7-scale splat-only BCL encoder over both clouds, correlation BCLs at scales
+3..7 chained coarse-ward, a slice-only BCL decoder with skip
+concatenations, and a 3-layer prediction head.  Submodule and parameter
+names are the flax ones (``bcn1``, ``bcn1_``, ``corr1``, ``conv4``, ...),
+so a JAX parameter tree maps onto ``state_dict`` keys one for one
+(``hplflownet_tpu_torch.params``).
+
+Single-sample, channels-last.  Runs on the CUDA card unless ``device`` says
+otherwise; ``compute_dtype`` bfloat16 runs gathers and products in bf16 with
+float32 accumulation, as the JAX bench does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..lattice.offsets import filter_size
+from ..ops.bcl import BilateralConv
+from ..ops.corr import BilateralCorrelation
+from .layers import PointMLP
+
+__all__ = ["HPLFlowNet"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+
+
+def _cat(*xs):
+    return torch.cat(xs, dim=-1)
+
+
+class HPLFlowNet(nn.Module):
+    """Args mirror the JAX module's (and the reference's config surface)."""
+
+    def __init__(self, scales_filter_map: Sequence[Sequence[float]],
+                 dim: int = 3, use_leaky: bool = True,
+                 bcn_use_bias: bool = True, bcn_use_norm: bool = True,
+                 last_relu: bool = False, compute_dtype="float32",
+                 device=None):
+        super().__init__()
+        assert len(scales_filter_map) == 7, "HPLFlowNet needs 7 scales"
+        device = resolve_device(device)
+        d, d1 = dim, dim + 1
+        sfm = scales_filter_map
+        dt = _DTYPES[compute_dtype]
+        self.compute_dtype = dt
+
+        def fs(radius):
+            return filter_size(int(radius), d)
+
+        def bcn(i, widths, num_input, do_splat):
+            return BilateralConv(widths, fs(sfm[i][1]), num_input,
+                                 do_splat=do_splat, do_slice=not do_splat,
+                                 use_norm=bcn_use_norm, use_bias=bcn_use_bias,
+                                 use_leaky=use_leaky, last_relu=last_relu,
+                                 compute_dtype=dt, device=device)
+
+        def corr(i, prev_dim):
+            return BilateralCorrelation((32, 32), (64, 64), fs(sfm[i][3]),
+                                        fs(sfm[i][2]), 64,
+                                        prev_corr_dim=prev_dim,
+                                        use_norm=bcn_use_norm,
+                                        use_leaky=use_leaky,
+                                        last_relu=last_relu,
+                                        compute_dtype=dt, device=device)
+
+        self.conv1 = PointMLP((32, 32, 64), dim, use_leaky=use_leaky,
+                              compute_dtype=dt, device=device)
+        for i in range(7):
+            setattr(self, f"bcn{i + 1}", bcn(i, (64, 64), d1 + 64, True))
+        # decoder input widths: [emg (d1) | decoder out | corr out | skip]
+        dec = [(1024, d1 + 512 + 64), (512, d1 + 256 + 64),
+               (256, d1 + 256 + 64 + 64), (256, d1 + 128 + 64 + 64),
+               (128, d1 + 128 + 64 + 64), (128, d1 + 128 + 64 + 64),
+               (128, 64 + 64)]
+        for i, (w, c_in) in enumerate(dec):
+            setattr(self, f"bcn{i + 1}_", bcn(i, (w, w), c_in, False))
+        for k, prev in enumerate((0, 64, 64, 64, 64)):
+            setattr(self, f"corr{k + 1}", corr(k + 2, prev))
+        self.conv2 = PointMLP((1024,), 1024, use_leaky=use_leaky,
+                              compute_dtype=dt, device=device)
+        self.conv3 = PointMLP((512,), 1024, use_leaky=use_leaky,
+                              compute_dtype=dt, device=device)
+        self.conv4 = PointMLP((3,), 512, last_act=False,
+                              compute_dtype=dt, device=device)
+
+    def forward(self, pc1: torch.Tensor, pc2: torch.Tensor, scales) -> torch.Tensor:
+        """pc1, pc2: (N, dim) points; scales: the 7 ``ScalePair`` tables.
+
+        Returns the (N, 3) float32 scene flow of pc1.
+        """
+        dt = self.compute_dtype
+
+        def emg1(sp):
+            return sp.pc1_el_minus_gr.to(dt)
+
+        feat1 = self.conv1(pc1)
+        feat2 = self.conv1(pc2)
+
+        def down(mod, sp, f1, f2):
+            o1 = mod(_cat(emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
+                     splat_plan=sp.pc1_splat_plan,
+                     blur_neighbors=sp.pc1_blur_neighbors)
+            o2 = mod(_cat(sp.pc2_el_minus_gr.to(dt), f2),
+                     in_barycentric=sp.pc2_barycentric,
+                     splat_plan=sp.pc2_splat_plan,
+                     blur_neighbors=sp.pc2_blur_neighbors)
+            return o1, o2
+
+        def correlate(mod, sp, f1, f2, prev):
+            return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
+                       sp.pc1_corr_indices, sp.pc2_corr_uniq,
+                       sp.pc2_corr_inverse)
+
+        p1o1, p2o1 = down(self.bcn1, scales[0], feat1, feat2)
+        p1o2, p2o2 = down(self.bcn2, scales[1], p1o1, p2o1)
+        p1o3, p2o3 = down(self.bcn3, scales[2], p1o2, p2o2)
+        c1 = correlate(self.corr1, scales[2], p1o3, p2o3, None)
+        p1o4, p2o4 = down(self.bcn4, scales[3], p1o3, p2o3)
+        c2 = correlate(self.corr2, scales[3], p1o4, p2o4, c1)
+        p1o5, p2o5 = down(self.bcn5, scales[4], p1o4, p2o4)
+        c3 = correlate(self.corr3, scales[4], p1o5, p2o5, c2)
+        p1o6, p2o6 = down(self.bcn6, scales[5], p1o5, p2o5)
+        c4 = correlate(self.corr4, scales[5], p1o6, p2o6, c3)
+        p1o7, p2o7 = down(self.bcn7, scales[6], p1o6, p2o6)
+        c5 = correlate(self.corr5, scales[6], p1o7, p2o7, c4)
+
+        def up(mod, feats, sp):
+            # blur on scale s's lattice, slice onto scale s's points
+            return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
+                       out_barycentric=sp.pc1_barycentric,
+                       out_lattice_offset=sp.pc1_lattice_offset)
+
+        out = up(self.bcn7_, _cat(c5, p1o7), scales[6])
+        out = up(self.bcn6_, _cat(emg1(scales[6]), out, c4, p1o6), scales[5])
+        out = up(self.bcn5_, _cat(emg1(scales[5]), out, c3, p1o5), scales[4])
+        out = up(self.bcn4_, _cat(emg1(scales[4]), out, c2, p1o4), scales[3])
+        out = up(self.bcn3_, _cat(emg1(scales[3]), out, c1, p1o3), scales[2])
+        out = up(self.bcn2_, _cat(emg1(scales[2]), out, p1o2), scales[1])
+        out = up(self.bcn1_, _cat(emg1(scales[1]), out, p1o1), scales[0])
+
+        res = self.conv2(out)
+        res = self.conv3(res)
+        return self.conv4(res)

@@ -1,0 +1,64 @@
+"""The port and chip_smoke.py import nothing of JAX.
+
+The card's machine has no jax, flax or optax, and importing any module of
+hplflownet_tpu loads them.  A subprocess installs a ``sys.meta_path``
+finder that refuses those packages, then imports every module of
+hplflownet_tpu_torch and chip_smoke.py (module import only).
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_REFUSING_IMPORTS = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "hplflownet_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import hplflownet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    hplflownet_tpu_torch.__path__, "hplflownet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("imported", len(names), "modules")
+'''
+
+
+def _run(args, cwd):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    r = _run(["-c", _REFUSING_IMPORTS], ROOT)
+    assert r.returncode == 0, r.stderr
+    n = int(r.stdout.split()[1])
+    assert n >= 15, r.stdout          # every subpackage and module was walked
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    r = _run(["chip_smoke.py"], ROOT)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = _run(["chip_smoke.py"], str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

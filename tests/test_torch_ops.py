@@ -1,0 +1,232 @@
+"""The port's forward ops against the JAX package's, on lattice tables.
+
+splat, blur, slice, corr_self, corr_cross and the BilateralConv /
+BilateralCorrelation modules get the same numpy inputs and the same
+lattice tables (the port's pyramid, which equals JAX's bit for bit —
+tests/test_torch_lattice.py) on both sides.  Tolerances: float32 results
+differ only in summation order (rtol/atol 1e-5, 1e-4 through the wide
+contractions); bf16 results may round one bf16 ulp apart (2^-8).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hplflownet_tpu.lattice.offsets import tap_negation
+from hplflownet_tpu.ops import bcl as jbcl
+from hplflownet_tpu.ops import corr as jcorr
+from hplflownet_tpu.ops import segment as jseg
+from hplflownet_tpu_torch.lattice import LatticeSpec, ScaleSpec, build_pyramid
+from hplflownet_tpu_torch.ops import bcl, corr, segment
+from hplflownet_tpu_torch.params import params_from_jax
+
+NEG15 = tap_negation(1, 3)
+SFM3 = [[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1]]
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _pyramid(caps=(448, 192, 128), seed=0):
+    rng = np.random.RandomState(seed)
+    pc1 = (rng.randn(96, 3) * 2.5).astype(np.float32)
+    pc2 = pc1 + 0.1 * rng.randn(96, 3).astype(np.float32)
+    spec = LatticeSpec(d=3, scales=tuple(
+        ScaleSpec(s, b, f, c, capacity=cap) for (s, b, f, c), cap in zip(SFM3, caps)))
+    return build_pyramid(spec, torch.from_numpy(pc1), torch.from_numpy(pc2)), rng
+
+
+def _j(x):
+    """A torch tensor (or a ReducePlan of them) as jax arrays."""
+    if isinstance(x, segment.ReducePlan):
+        return jseg.ReducePlan(*[jnp.asarray(t.numpy()) for t in x])
+    return jnp.asarray(x.numpy())
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, bf16):
+    got = got.float().numpy()
+    if bf16:
+        np.testing.assert_allclose(got, want, rtol=8e-3, atol=8e-3)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_splat_matches_jax(jdt, tdt, normalize):
+    scales, rng = _pyramid()
+    for i in (0, 2):                      # metric points, then vertex points
+        sp = scales[i]
+        n = sp.pc1_barycentric.shape[0]
+        feats = rng.randn(n, 68).astype(np.float32)
+        want = _np(jbcl.splat(jnp.asarray(feats, jdt), _j(sp.pc1_barycentric),
+                              _j(sp.pc1_splat_plan), normalize=normalize))
+        got = bcl.splat(torch.from_numpy(feats).to(tdt), sp.pc1_barycentric,
+                        sp.pc1_splat_plan, normalize=normalize)
+        assert got.dtype == torch.float32
+        # same bf16 products on both sides; only the f32 sum order differs
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_weighted_reduce_with_a_generic_plan_matches_jax():
+    rng = np.random.RandomState(3)
+    ids = rng.randint(-1, 40, (300, 4)).astype(np.int32)
+    rows = rng.randn(300, 9).astype(np.float32)
+    w = rng.rand(300, 4).astype(np.float32)
+    jplan = jseg.make_reduce_plan(jnp.asarray(ids), 40)
+    tplan = segment.make_reduce_plan(torch.from_numpy(ids), 40)
+    for name in jseg.ReducePlan._fields:
+        np.testing.assert_array_equal(getattr(tplan, name).numpy(),
+                                      np.asarray(getattr(jplan, name)))
+    want = np.asarray(jseg.weighted_reduce(True, jplan, jnp.asarray(rows),
+                                           jnp.asarray(w)))
+    got = segment.weighted_reduce(True, tplan, torch.from_numpy(rows),
+                                  torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("slope", [None, 0.0, 0.1])
+def test_blur_matches_jax(jdt, tdt, slope):
+    scales, rng = _pyramid()
+    sp = scales[0]
+    h = sp.pc1_blur_neighbors.shape[1]
+    table = rng.randn(h + 1, 20).astype(np.float32)
+    table[0] = 0.0
+    kern = (rng.randn(15, 20, 24) * 0.2).astype(np.float32)
+    bias = rng.randn(24).astype(np.float32)
+    want = _np(jbcl.blur_matmul(NEG15, slope, jnp.dtype(jdt).name,
+                                jnp.asarray(table, jdt), _j(sp.pc1_blur_neighbors),
+                                jnp.asarray(kern, jdt), jnp.asarray(bias)))
+    got = bcl.blur(torch.from_numpy(table).to(tdt), sp.pc1_blur_neighbors,
+                   torch.from_numpy(kern).to(tdt), torch.from_numpy(bias),
+                   slope, tdt)
+    assert got.dtype == tdt
+    _close(got, want, tdt == torch.bfloat16)
+
+
+@pytest.mark.parametrize("caps", [(448, 192, 128), (160, 64, 32)])
+def test_slice_matches_jax_and_zeroes_absent_vertices(caps):
+    scales, rng = _pyramid(caps=caps)
+    for sp in scales:
+        h = sp.pc1_blur_neighbors.shape[1]
+        blurred = rng.randn(h, 16).astype(np.float32)
+        want = np.asarray(jbcl.slice_to_points(
+            jnp.asarray(blurred), _j(sp.pc1_barycentric),
+            _j(sp.pc1_lattice_offset), _j(sp.pc1_splat_plan)))
+        got = bcl.slice_to_points(torch.from_numpy(blurred), sp.pc1_barycentric,
+                                  sp.pc1_lattice_offset)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the small capacities overflow: a valid point whose vertex was dropped
+    # must not read row 0
+    if caps[0] == 160:
+        assert any(int(s.pc1_overflow) > 0 for s in scales)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_corr_self_and_corr_cross_match_jax(jdt, tdt):
+    scales, rng = _pyramid()
+    sp = scales[1]
+    h1 = sp.pc1_blur_neighbors.shape[1]
+    h2 = sp.pc2_blur_neighbors.shape[1]
+    c, w, nf = 12, 8, 15
+    pad1 = rng.randn(h1 + 1, 2 * c).astype(np.float32)
+    pad2 = rng.randn(h2 + 1, c).astype(np.float32)
+    pad1[0] = pad2[0] = 0.0
+    k_self = (rng.randn(15, 2 * c, w) * 0.2).astype(np.float32)
+    bias = rng.randn(w).astype(np.float32)
+    want = _np(jcorr.corr_self(NEG15, jnp.asarray(pad1, jdt), _j(sp.pc1_corr_indices),
+                               jnp.asarray(k_self, jdt), jnp.asarray(bias)))
+    got = corr.corr_self(torch.from_numpy(pad1).to(tdt), sp.pc1_corr_indices,
+                         torch.from_numpy(k_self).to(tdt), torch.from_numpy(bias))
+    assert got.dtype == torch.float32
+    _close(got, want, False)
+
+    u = sp.pc2_corr_uniq.shape[0]
+    assert u == 65
+    k_cross = (rng.randn(15, c, w) * 0.2).astype(np.float32)
+    onehot = jax.nn.one_hot(_j(sp.pc2_corr_inverse), u, dtype=jdt)
+    k2_j = jnp.einsum("fku,kcw->ucfw", onehot, jnp.asarray(k_cross, jdt),
+                      preferred_element_type=jnp.float32).astype(jdt)
+    k2_t = corr.fold_cross_kernel(torch.from_numpy(k_cross), sp.pc2_corr_inverse,
+                                  u, tdt)
+    np.testing.assert_array_equal(k2_t.float().numpy(), _np(k2_j))
+    want = _np(jcorr.corr_cross(jnp.asarray(pad2, jdt), _j(sp.pc2_corr_uniq),
+                                k2_j, _j(sp.pc2_corr_uniq_inv)))
+    got = corr.corr_cross(torch.from_numpy(pad2).to(tdt), sp.pc2_corr_uniq, k2_t)
+    assert got.shape == (h1, nf, w)
+    _close(got, want, False)
+    np.testing.assert_array_equal(
+        corr.gather_rows(torch.from_numpy(pad2), sp.pc2_corr_uniq).numpy(),
+        np.asarray(jcorr.gather_rows(jnp.asarray(pad2), _j(sp.pc2_corr_uniq),
+                                     _j(sp.pc1_splat_plan))))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("encoder", [True, False])
+def test_bilateral_conv_module_matches_flax(dt, encoder):
+    scales, rng = _pyramid()
+    sp = scales[0]
+    n = sp.pc1_barycentric.shape[0]
+    h = sp.pc1_blur_neighbors.shape[1]
+    feats = rng.randn(n if encoder else h, 10).astype(np.float32)
+    jmod = jbcl.BilateralConv(widths=(12, 9), filter_size=15, do_splat=encoder,
+                              do_slice=not encoder, tap_negation=NEG15,
+                              compute_dtype=dt)
+    kw = dict(in_barycentric=_j(sp.pc1_barycentric),
+              splat_plan=_j(sp.pc1_splat_plan),
+              blur_neighbors=_j(sp.pc1_blur_neighbors),
+              out_barycentric=_j(sp.pc1_barycentric),
+              out_lattice_offset=_j(sp.pc1_lattice_offset),
+              out_splat_plan=_j(sp.pc1_splat_plan))
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), **kw)
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.05 * jnp.ones_like(a), params)     # nonzero biases
+    want = _np(jmod.apply(params, jnp.asarray(feats), **kw))
+    tdt = getattr(torch, dt)
+    tmod = bcl.BilateralConv((12, 9), 15, 10, do_splat=encoder,
+                             do_slice=not encoder, compute_dtype=tdt,
+                             device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, params), tmod)
+    with torch.inference_mode():
+        got = tmod(torch.from_numpy(feats), sp.pc1_barycentric, sp.pc1_splat_plan,
+                   sp.pc1_blur_neighbors, sp.pc1_barycentric, sp.pc1_lattice_offset)
+    assert got.dtype == tdt
+    _close(got, want, dt == "bfloat16")
+
+
+def test_bilateral_correlation_module_matches_flax():
+    scales, rng = _pyramid()
+    sp = scales[1]
+    h1 = sp.pc1_blur_neighbors.shape[1]
+    h2 = sp.pc2_blur_neighbors.shape[1]
+    n_in = sp.pc1_barycentric.shape[0]
+    feat1 = rng.randn(h1, 6).astype(np.float32)
+    feat2 = rng.randn(h2, 6).astype(np.float32)
+    prev = rng.randn(n_in, 3).astype(np.float32)
+    jmod = jcorr.BilateralCorrelation(corr_widths=(5, 4), widths=(7, 6),
+                                      corr_size=15, filter_size=15,
+                                      corr_tap_negation=NEG15, prev_corr_dim=3)
+    args = dict(prev_corr_feat=jnp.asarray(prev),
+                barycentric1=_j(sp.pc1_barycentric),
+                splat_plan1=_j(sp.pc1_splat_plan),
+                pc1_corr_indices=_j(sp.pc1_corr_indices),
+                pc2_corr_uniq=_j(sp.pc2_corr_uniq),
+                pc2_corr_inverse=_j(sp.pc2_corr_inverse),
+                pc2_corr_uniq_inv=_j(sp.pc2_corr_uniq_inv))
+    params = jmod.init(jax.random.PRNGKey(1), jnp.asarray(feat1),
+                       jnp.asarray(feat2), **args)
+    want = np.asarray(jmod.apply(params, jnp.asarray(feat1), jnp.asarray(feat2),
+                                 **args))
+    tmod = corr.BilateralCorrelation((5, 4), (7, 6), 15, 15, 6, prev_corr_dim=3,
+                                     device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, params), tmod)
+    with torch.inference_mode():
+        got = tmod(torch.from_numpy(feat1), torch.from_numpy(feat2),
+                   torch.from_numpy(prev), sp.pc1_barycentric, sp.pc1_splat_plan,
+                   sp.pc1_corr_indices, sp.pc2_corr_uniq, sp.pc2_corr_inverse)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
