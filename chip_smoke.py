@@ -9,15 +9,25 @@ Phases, each printing a line with its elapsed seconds:
 2. build    compile every CUDA kernel of the main path with nvcc, in
             parallel, into hplflownet_tpu_torch/_build/;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the main path's shapes, in float32 and bfloat16: max error,
-            kernel and plain time, the bound, and a library yardstick;
+            the shapes the forward and the train step give it, in float32
+            and bfloat16: max error, kernel and plain time, the bound, and
+            a library yardstick;
 4. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
-            tests/data/torch_port_ref_n64.npz;
+            tests/data/torch_port_ref_n64.npz, and the float32 train step's
+            loss and gradients on the same pair against JAX's, frozen in
+            tests/data/torch_port_train_ref_n64.npz;
 5. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
-            width (7 scales, bf16 compute): the launch counts of every
-            kernel, the flow's shape and finiteness, zero overflow, the same
-            forward with the plain versions forced, and pairs/s.
+            width (7 scales, bf16 compute): the launch counts of the
+            forward's kernels, the flow's shape and finiteness, zero
+            overflow, the same forward with the plain versions forced, and
+            pairs/s;
+6. train    the flagship train step (``train.step.make_train_step``: the
+            8192-point pair, batch 1, bf16, Adam at lr 1e-4, overflow skip):
+            the launch counts of all four kernels in one step, two gradient
+            evaluations bit for bit, the gradients against the same step
+            with the plain versions forced (in bf16, and in float32 on a
+            float32 copy of the model), and ms/step over timed steps.
 
 Then one JSON line listing every kernel, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -40,7 +50,10 @@ SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
 CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
 NUM_POINTS = 8192
 REF_NPZ = os.path.join("tests", "data", "torch_port_ref_n64.npz")
+TRAIN_REF_NPZ = os.path.join("tests", "data", "torch_port_train_ref_n64.npz")
 DEVICE = "cuda"   # a CPU rehearsal of the phases may set "cpu" after import
+TRAIN_WARMUP, TRAIN_REPS = 2, 5
+DIR_SEED = 5      # seeds the directions of the frozen gradient summary
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -101,6 +114,56 @@ def max_err(got, want, atol: float, rtol: float, what: str) -> float:
     return float(diff.max())
 
 
+def grad_summary(grads: dict, names) -> tuple:
+    """Per leaf (in ``names`` order): the gradient's L2 norm and its dot
+    products with 4 directions of standard normals seeded by (DIR_SEED, i),
+    in float64.  Leaves are numpy arrays."""
+    import numpy as np
+    norms = np.zeros(len(names))
+    dots = np.zeros((len(names), 4))
+    for i, name in enumerate(names):
+        g = np.asarray(grads[name], dtype=np.float64).ravel()
+        rng = np.random.default_rng([DIR_SEED, i])
+        norms[i] = np.linalg.norm(g)
+        for j in range(4):
+            dots[i, j] = rng.standard_normal(g.size, dtype=np.float32) @ g
+    return norms, dots
+
+
+# Train step vs the frozen JAX summary: (loss rel, norm rel, dot / norm)
+# against JAX as it is, whose float32 segment sums lose ~3e-7 per run that
+# 1/(density + 1e-5) amplifies on sparsely hit vertices (up to 2.8e-2 of a
+# leaf's max on this case, 1.5e-2 in a dot), and against JAX with exact
+# segment sums, which the port matches to ~1e-6.
+TRAIN_TOL = {"": (1e-5, 1e-2, 5e-2), "exact_": (1e-5, 1e-4, 1e-3)}
+
+
+def check_train_reference(ref, loss: float, grads: dict) -> list:
+    """Hold a float32 train step's loss and gradients (tensors) against the
+    frozen JAX summary; raises past TRAIN_TOL.  -> per-leaf error rows."""
+    import numpy as np
+    names = [str(n) for n in ref["names"]]
+    norms, dots = grad_summary(
+        {k: v.detach().float().cpu().numpy() for k, v in grads.items()}, names)
+    rows = []
+    for prefix, (tol_loss, tol_norm, tol_dot) in TRAIN_TOL.items():
+        want = float(ref[f"{prefix}loss"])
+        if not abs(loss - want) <= tol_loss * abs(want):
+            raise AssertionError(f"train loss {loss!r} vs JAX {prefix}{want!r}")
+        ref_norm = ref[f"{prefix}grad_norm"]
+        norm_err = np.abs(norms - ref_norm) / ref_norm
+        dot_err = np.abs(dots - ref[f"{prefix}grad_dots"]).max(1) / ref_norm
+        bad = [names[i] for i in np.flatnonzero((norm_err > tol_norm)
+                                                | (dot_err > tol_dot))]
+        if bad:
+            raise AssertionError(f"gradients vs JAX {prefix or 'as is'}: "
+                                 f"{len(bad)} leaves past tolerance: {bad[:5]}")
+        rows.append(dict(against=prefix.rstrip("_") or "jax",
+                         worst_norm=float(norm_err.max()),
+                         worst_dot=float(dot_err.max())))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -142,7 +205,7 @@ def _lattice_case_tables(dev):
     with torch.inference_mode():
         return build_pyramid(spec, torch.from_numpy(pc1[0]).to(dev),
                              torch.from_numpy(pc2[0]).to(dev),
-                             adjoint_plans=False)
+                             adjoint_plans=True)
 
 
 def phase_kernels(results):
@@ -150,6 +213,7 @@ def phase_kernels(results):
     from hplflownet_tpu_torch.kernels.stencil import (
         stencil_gather_matmul, stencil_gather_matmul_plain)
     from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
+    from hplflownet_tpu_torch.lattice.offsets import tap_negation
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -162,11 +226,15 @@ def phase_kernels(results):
     # dtype, bias: as the main path calls the kernel
     nb0, h0 = scales[0].pc1_blur_neighbors, CAPACITIES[0]
     h2 = CAPACITIES[2]
+    neg = torch.tensor(tap_negation(1, 3), device=dev)
     stencil_cases = [
         ("bcn1 blur", nb0, h0, 68, 64, 0.1, "compute", True),
         ("bcn1_ decoder blur", nb0, h0, 580, 1024, 0.1, "compute", True),
         ("corr_self", scales[2].pc1_corr_indices, h2, 128, 32, None, "float32", True),
         ("corr_cross", scales[2].pc2_corr_uniq, h2, 64, 480, None, "float32", False),
+        # the decoder blur's input gradient: negated taps, transposed kernel
+        ("bcn1_ blur input gradient", nb0[neg], h0, 1024, 580, None, "compute",
+         False),
     ]
     stencil_rows = []
     for name, nb, h_in, c_in, c_out, slope, out_kind, has_bias in stencil_cases:
@@ -214,10 +282,13 @@ def phase_kernels(results):
                 f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                 f"matmul over the spread {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
-    # the splat stream at scale 2 (the 127k x 68 case) and scale 0
+    # the splat streams at scale 2 (the 127k x 68 case) and scale 0, and
+    # the decoder's slice adjoint (the 1024-wide cotangent, no density)
     reduce_rows = []
-    for name, si, n_pts, c in (("scale-2 splat (bcn3)", 2, CAPACITIES[1], 68),
-                               ("scale-0 splat (bcn1)", 0, NUM_POINTS, 68)):
+    for name, si, n_pts, c, with_w in (
+            ("scale-2 splat (bcn3)", 2, CAPACITIES[1], 68, True),
+            ("scale-0 splat (bcn1)", 0, NUM_POINTS, 68, True),
+            ("bcn1_ slice adjoint", 0, NUM_POINTS, 1024, False)):
         sp = scales[si]
         plan = sp.pc1_splat_plan
         bary = sp.pc1_barycentric
@@ -228,29 +299,32 @@ def phase_kernels(results):
         entries = int((plan.end - plan.start).clamp(min=0).sum())
         for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             g = torch.cat([feats32.to(dt), bary.to(dt)], 1)[perm // r].contiguous()
-            got = rank_reduce(g, rid, plan.start, plan.end, c, True)
-            again = rank_reduce(g, rid, plan.start, plan.end, c, True)
-            want = rank_reduce_plain(g, rid, plan.start, plan.end, c, True)
+            got = rank_reduce(g, rid, plan.start, plan.end, c, with_w)
+            again = rank_reduce(g, rid, plan.start, plan.end, c, with_w)
+            want = rank_reduce_plain(g, rid, plan.start, plan.end, c, with_w)
             sync()
             if not torch.equal(got, again):
                 raise AssertionError(f"rank_reduce {name} {dtn}: rerun differs")
             # float32 run sums of a few bf16/f32 products vs the float64 prefix
             err = max_err(got, want, 1e-4, 1e-5, f"rank_reduce {name} {dtn}")
-            ms = cuda_ms(lambda: rank_reduce(g, rid, plan.start, plan.end, c, True))
+            ms = cuda_ms(lambda: rank_reduce(g, rid, plan.start, plan.end, c, with_w))
             plain_ms = cuda_ms(lambda: rank_reduce_plain(
-                g, rid, plan.start, plan.end, c, True), reps=3)
+                g, rid, plan.start, plan.end, c, with_w), reps=3)
             # yardstick: index_add_ of the already-weighted stream by vertex id
             w_sel = torch.gather(g[:, c:], 1, rid.long()[:, None])
-            sv = torch.cat([g[:, :c] * w_sel, w_sel], 1).float()
+            sv = g[:, :c] * w_sel
+            if with_w:
+                sv = torch.cat([sv, w_sel], 1)
+            sv = sv.float()
             ids = plan.ids[perm].long()
             keep = ids >= 0
             sv, ids = sv[keep].contiguous(), ids[keep].contiguous()
             t_out = plan.start.shape[0]
-            lib_ms = cuda_ms(lambda: torch.zeros(t_out, c + 1, device=dev)
+            lib_ms = cuda_ms(lambda: torch.zeros(t_out, got.shape[1], device=dev)
                              .index_add_(0, ids, sv))
             nbytes = (entries * g.shape[1] * g.element_size() + entries * 4
                       + 2 * t_out * 4 + got.numel() * 4)
-            flops = 2.0 * entries * (c + 1)
+            flops = 2.0 * entries * got.shape[1]
             bms, by = bound_ms(nbytes, flops, "float32")
             row = dict(case=name, dtype=dtn,
                        shape=f"M={g.shape[0]} C={c} R={r} T={t_out}",
@@ -261,8 +335,103 @@ def phase_kernels(results):
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by})")
+    results["dkernel"] = _dkernel_cases(scales, randn)
+    results["tap_tables"] = _tap_tables_cases(scales, randn)
     results["stencil"] = stencil_rows
     results["reduce"] = reduce_rows
+
+
+def _dkernel_cases(scales, randn) -> list:
+    """stencil_dkernel at the train step's three weight-gradient shapes."""
+    import torch
+    from hplflownet_tpu_torch.kernels.dkernel import (stencil_dkernel,
+                                                      stencil_dkernel_plain)
+    h0, h2 = CAPACITIES[0], CAPACITIES[2]
+    cases = [("bcn1_ blur dW", scales[0].pc1_blur_neighbors, h0, 580, 1024),
+             ("corr_self dW", scales[2].pc1_corr_indices, h2, 128, 32),
+             ("corr_cross dW", scales[2].pc2_corr_uniq, h2, 64, 480)]
+    rows = []
+    for name, nb, h_in, c_in, c_out in cases:
+        nb = nb.contiguous()
+        f, h_out = nb.shape
+        nnz = int((nb >= 0).sum())
+        table32, g32 = randn(h_in, c_in), randn(h_out, c_out)
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            table, g = table32.to(dt), g32.to(dt)
+            got = stencil_dkernel(table, nb, g)
+            again = stencil_dkernel(table, nb, g)
+            want = stencil_dkernel_plain(table, nb, g)
+            sync()
+            if not torch.equal(got, again):
+                raise AssertionError(f"stencil_dkernel {name} {dtn}: rerun differs")
+            # float32 sums over up to H_out exact products, in another
+            # order: 2e-4 of the largest entry
+            atol = 2e-4 * float(want.abs().max())
+            err = max_err(got, want, atol, 0.0, f"stencil_dkernel {name} {dtn}")
+            ms = cuda_ms(lambda: stencil_dkernel(table, nb, g))
+            plain_ms = cuda_ms(lambda: stencil_dkernel_plain(table, nb, g), reps=3)
+            spread_t = torch.cat([table.new_zeros(1, c_in), table])[
+                (nb + 1).long()].transpose(1, 2)                # (F, C_in, H_out)
+            g_b = g.expand(f, h_out, c_out)
+            lib_ms = cuda_ms(lambda: torch.bmm(spread_t, g_b))
+            del spread_t
+            s_in = table.element_size()
+            nbytes = (table.numel() * s_in + nb.numel() * 4 + g.numel() * s_in
+                      + got.numel() * 4)
+            flops = 2.0 * nnz * c_in * c_out
+            bms, by = bound_ms(nbytes, flops, dtn)
+            row = dict(case=name, dtype=dtn,
+                       shape=f"H={h_out} F={f} C_in={c_in} C_out={c_out}",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms, tflops=flops / ms / 1e9)
+            rows.append(row)
+            log(f"stencil_dkernel {name} {dtn} [{row['shape']}]: max_abs_err "
+                f"{err:.3e} (atol {atol:.2e}), rerun bit-identical; kernel "
+                f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"bmm over the spread {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def _tap_tables_cases(scales, randn) -> list:
+    """stencil_tap_tables_sum at corr1's correlation adjoint: z (H1, 65 x
+    64) gathered through uniq_inv (65, H2)."""
+    import torch
+    from hplflownet_tpu_torch.kernels.tap_tables import (
+        stencil_tap_tables_sum, stencil_tap_tables_sum_plain)
+    nb = scales[2].pc2_corr_uniq_inv.contiguous()
+    f, h_out = nb.shape
+    h, c = CAPACITIES[2], 64
+    nnz = int((nb >= 0).sum())
+    z32 = randn(h, f * c)
+    ids = nb.t().clamp(min=0).long()                        # (H_out, F)
+    mask = (nb.t() >= 0)[:, :, None]
+    taps = torch.arange(f, device=nb.device)[None, :]
+    rows = []
+    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        z = z32.to(dt)
+        got = stencil_tap_tables_sum(z, c, nb)
+        want = stencil_tap_tables_sum_plain(z, c, nb)
+        sync()
+        # the same float32 sums in the same tap order
+        err = max_err(got, want, 1e-5, 1e-6, f"stencil_tap_tables_sum {dtn}")
+        ms = cuda_ms(lambda: stencil_tap_tables_sum(z, c, nb))
+        plain_ms = cuda_ms(lambda: stencil_tap_tables_sum_plain(z, c, nb), reps=3)
+        z3 = z.view(h, f, c)
+        lib_ms = cuda_ms(lambda: torch.where(mask, z3[ids, taps], 0).sum(
+            1, dtype=torch.float32))
+        nbytes = nnz * c * z.element_size() + nb.numel() * 4 + got.numel() * 4
+        # one float32 add per element read
+        bms, by = bound_ms(nbytes, float(nnz * c), "float32")
+        row = dict(case="corr1 adjoint", dtype=dtn,
+                   shape=f"H={h} F={f} C={c} H_out={h_out}", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms)
+        rows.append(row)
+        log(f"stencil_tap_tables_sum corr1 adjoint {dtn} [{row['shape']}]: "
+            f"max_abs_err {err:.3e} (atol 1e-5 rtol 1e-6); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, index + sum {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    return rows
 
 
 def phase_reference():
@@ -288,6 +457,22 @@ def phase_reference():
                              f"max rel {rel:.3e}, shape {got.shape}")
     log(f"n=64 float32 flow through the kernels vs frozen JAX output: "
         f"max abs {err:.3e}, max rel {rel:.3e} (limits 1e-3 / 5e-3)")
+
+    from hplflownet_tpu_torch.train.step import loss_and_grad
+    tref = np.load(TRAIN_REF_NPZ)
+    params_from_jax(seeded_jax_params(model, int(tref["seed"])), model)
+    n = tref["pc1"].shape[1]
+    batch = dict(pc1=tref["pc1"], pc2=tref["pc2"], sf=tref["sf"],
+                 valid1=np.ones((1, n), bool), valid2=np.ones((1, n), bool))
+    loss, _, grads = loss_and_grad(
+        model, make_lattice_spec(SFM7, [int(c) for c in tref["capacities"]]),
+        dict(model.named_parameters()), batch)
+    rows = check_train_reference(tref, float(loss), grads)
+    log(f"n=64 float32 train step through the kernels vs frozen JAX: loss "
+        f"{float(loss):.8f} (JAX {float(tref['loss']):.8f}); per leaf worst "
+        + "; ".join(f"vs {r['against']}: norm {r['worst_norm']:.2e}, dot/norm "
+                    f"{r['worst_dot']:.2e}" for r in rows)
+        + f" (limits {TRAIN_TOL})")
 
 
 def phase_main_path(results):
@@ -319,7 +504,7 @@ def phase_main_path(results):
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
-    results["launches"] = launches
+    results["forward_launches"] = launches
 
     out = flow.float().cpu().numpy()
     if out.shape != (NUM_POINTS, 3) or not np.isfinite(out).all():
@@ -368,28 +553,162 @@ def phase_main_path(results):
     log(f"same forward with the plain versions: {ms_plain:.2f} ms/pair")
 
 
+def phase_train(results):
+    """The flagship train step on the card: launches, plain compare,
+    determinism, ms/step."""
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.kernels import plain_kernels
+    from hplflownet_tpu_torch.kernels.dkernel import stencil_dkernel
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce
+    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
+    from hplflownet_tpu_torch.kernels.tap_tables import stencil_tap_tables_sum
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.models import HPLFlowNet
+    from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
+    from hplflownet_tpu_torch.pipeline import make_lattice_spec
+    from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
+
+    pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in dict(
+        pc1=pc1, pc2=pc2, sf=pc2 - pc1, valid1=np.ones((1, NUM_POINTS), bool),
+        valid2=np.ones((1, NUM_POINTS), bool)).items()}
+    spec = make_lattice_spec(SFM7, CAPACITIES)
+    model = HPLFlowNet(SFM7, compute_dtype="bfloat16", device=DEVICE)
+    params_from_jax(seeded_jax_params(model, 0), model)
+    init, step = make_train_step(model, spec, learning_rate=1e-4,
+                                 on_overflow="skip", device=DEVICE)
+    state = init()
+
+    wrappers = {"stencil_gather_matmul": stencil_gather_matmul,
+                "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
+                "stencil_tap_tables_sum": stencil_tap_tables_sum}
+    for w in wrappers.values():
+        w.launches = 0
+    new_state, loss, overflow = step.with_overflow(state, batch)
+    sync()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"train step launches: {launches}")
+    for k, n in launches.items():
+        if n <= 0 and DEVICE == "cuda":      # a CPU rehearsal launches nothing
+            raise AssertionError(f"{k} was not launched in the train step")
+    results["launches"] = launches
+    if int(overflow) != 0 or int(new_state.step) != 1:
+        raise AssertionError(f"train step: overflow {int(overflow)}, step "
+                             f"{int(new_state.step)}")
+
+    # two gradient evaluations on the same state: bit for bit
+    loss1, _, g1 = loss_and_grad(model, spec, state.params, batch)
+    loss2, _, g2 = loss_and_grad(model, spec, state.params, batch)
+    sync()
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    if differ or not torch.equal(loss1, loss2):
+        raise AssertionError(f"gradients differ between two evaluations: {differ[:5]}")
+    # the same gradients with the plain versions forced, in bf16 and, on a
+    # float32 copy of the model, in float32
+    model32 = HPLFlowNet(SFM7, compute_dtype="float32", device=DEVICE)
+    params_from_jax(seeded_jax_params(model32, 0), model32)
+    p32 = dict(model32.named_parameters())
+    _, _, g32 = loss_and_grad(model32, spec, p32, batch)
+    before = {k: w.launches for k, w in wrappers.items()}
+    with plain_kernels():
+        loss_p, _, gp = loss_and_grad(model, spec, state.params, batch)
+        _, _, gp32 = loss_and_grad(model32, spec, p32, batch)
+    sync()
+    if any(w.launches != before[k] for k, w in wrappers.items()):
+        raise AssertionError("a kernel launched inside plain_kernels()")
+
+    def leaf_rel(a, b):
+        return {k: float((a[k].float() - b[k].float()).abs().max()
+                         / b[k].float().abs().max().clamp_min(1e-30)) for k in b}
+
+    def summary(rel):
+        worst = max(rel, key=rel.get)
+        return worst, rel[worst], float(np.median(list(rel.values())))
+
+    # float32: the kernels sum in another order than the plain versions
+    w32, r32, m32 = summary(leaf_rel(g32, gp32))
+    if r32 > 1e-3:
+        raise AssertionError(f"float32 gradients, kernels vs plain: {w32} max "
+                             f"rel {r32:.3e} > 1e-3")
+    # bf16: activations and cotangents round to bf16 at every layer, so a
+    # one-ulp flip anywhere moves the later ones; the plain bf16 step itself
+    # lies up to ~8e-2 (median ~2e-2) of a leaf's max from the float32
+    # gradient, and the kernels' bf16 step must stay as close to it
+    wb, rb, mb = summary(leaf_rel(g1, gp))
+    _, noise, noise_med = summary(leaf_rel(gp, gp32))
+    _, to32, to32_med = summary(leaf_rel(g1, gp32))
+    if rb > 1e-1 or mb > 2e-2 or to32 > max(1e-1, 1.5 * noise):
+        raise AssertionError(
+            f"bf16 gradients, kernels vs plain: {wb} max rel {rb:.3e} (limit "
+            f"1e-1), median {mb:.3e} (limit 2e-2); kernels vs float32 {to32:.3e}, "
+            f"plain bf16 vs float32 {noise:.3e}")
+    results["train_grad_rel"] = dict(f32=r32, bf16=rb, bf16_median=mb,
+                                     bf16_to_f32=to32, plain_bf16_to_f32=noise)
+    log(f"train step gradients per leaf, max|d|/max|g|: float32 kernels vs plain "
+        f"worst {r32:.3e} ({w32}), median {m32:.3e} (limit 1e-3); bf16 kernels "
+        f"vs plain worst {rb:.3e} ({wb}), median {mb:.3e} (limits 1e-1, 2e-2); "
+        f"bf16 vs the float32 gradient: kernels {to32:.3e} (median "
+        f"{to32_med:.3e}), plain {noise:.3e} (median {noise_med:.3e}); bf16 loss "
+        f"{float(loss1):.6f} vs plain {float(loss_p):.6f}; two evaluations "
+        f"bit-identical")
+    del model32, p32, g32, gp32, g1, g2, gp
+
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    sync()
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+    for _ in range(TRAIN_REPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    if DEVICE == "cuda":
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / TRAIN_REPS
+    else:                                       # CPU rehearsal only
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all() or int(state.step) != len(losses):
+        raise AssertionError(f"train losses {losses}, step {int(state.step)}")
+    results["train_ms"] = ms
+    log(f"flagship train step (8192-point pair, batch 1, bf16, Adam, overflow "
+        f"skip) on {results.get('card', DEVICE)}: {ms:.2f} ms/step = "
+        f"{1e3 / ms:.2f} train pairs/s over {TRAIN_REPS} steps after "
+        f"{TRAIN_WARMUP} warm-up; losses {np.round(losses, 5).tolist()}")
+
+
 def kernels_line(results) -> dict:
-    stencil = [r for r in results["stencil"]
-               if r["case"] == "bcn1_ decoder blur" and r["dtype"] == "bfloat16"][0]
-    reduce = [r for r in results["reduce"]
-              if r["case"].startswith("scale-2") and r["dtype"] == "bfloat16"][0]
+    """The contract line: one entry per kernel, at its widest bf16 case."""
+    def pick(kind, case):
+        return [r for r in results[kind]
+                if r["case"].startswith(case) and r["dtype"] == "bfloat16"][0]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return {"kernels": [
-        dict(name="stencil_gather_matmul", route="cuda",
-             source="hplflownet_tpu_torch/csrc/stencil_gather_matmul.cu",
-             replaces="hplflownet_tpu/ops/pallas_stencil.py:270",
-             launches=results["launches"]["stencil_gather_matmul"],
-             **{k: stencil[k] for k in keys},
-             shape=stencil["shape"] + " bf16",
-             max_abs_err_all=max(r["max_abs_err"] for r in results["stencil"])),
-        dict(name="rank_reduce", route="cuda",
-             source="hplflownet_tpu_torch/csrc/rank_reduce.cu",
-             replaces="hplflownet_tpu/ops/pallas_stencil.py:735",
-             launches=results["launches"]["rank_reduce"],
-             **{k: reduce[k] for k in keys},
-             shape=reduce["shape"] + " bf16",
-             max_abs_err_all=max(r["max_abs_err"] for r in results["reduce"])),
-    ]}
+    fwd = results.get("forward_launches", {})
+    entries = [
+        ("stencil_gather_matmul", "stencil", "bcn1_ decoder blur", 270),
+        ("rank_reduce", "reduce", "scale-2", 735),
+        ("stencil_dkernel", "dkernel", "bcn1_ blur dW", 340),
+        ("stencil_tap_tables_sum", "tap_tables", "corr1", 461),
+    ]
+    out = []
+    for name, kind, case, line in entries:
+        row = pick(kind, case)
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"hplflownet_tpu_torch/csrc/{name}.cu",
+            replaces=f"hplflownet_tpu/ops/pallas_stencil.py:{line}",
+            launches=results["launches"][name],
+            **{k: row[k] for k in keys},
+            shape=row["shape"] + " bf16",
+            max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
+            **({"launches_forward": fwd[name]} if name in fwd else {})))
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -419,7 +738,8 @@ def main() -> int:
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results)),
               ("reference", phase_reference),
-              ("main path", lambda: phase_main_path(results))]
+              ("main path", lambda: phase_main_path(results)),
+              ("train", lambda: phase_train(results))]
     outputs = {}
     for i, (name, fn) in enumerate(phases, 1):
         t = time.perf_counter()
@@ -430,6 +750,8 @@ def main() -> int:
             log(f"phase {i} {name}: FAILED after {time.perf_counter() - t:.1f} s")
             return 1
         log(f"phase {i} {name}: ok in {time.perf_counter() - t:.1f} s")
+        if name == "device":
+            results["card"] = outputs[name][1]
 
     kind, smi_line = outputs["device"]
     print(json.dumps(kernels_line(results)), flush=True)

@@ -16,7 +16,8 @@ _CONSTANTS: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the current CUDA card."""
+    """``device`` as a ``torch.device``; ``None`` means the current CUDA card,
+    and a bare "cuda" gets the current card's index (as tensors report it)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -24,7 +25,10 @@ def resolve_device(device=None) -> torch.device:
                 "torch sees none; pass device='cpu' to run the plain "
                 "PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def device_constant(arr: np.ndarray, device) -> torch.Tensor:

@@ -5,14 +5,18 @@ Every kernel replaces one Pallas TPU kernel of ``hplflownet_tpu``:
 * ``stencil.stencil_gather_matmul`` (csrc/stencil_gather_matmul.cu) replaces
   ``hplflownet_tpu/ops/pallas_stencil.py`` ``stencil_gather_matmul``;
 * ``splat.rank_reduce`` (csrc/rank_reduce.cu) replaces
-  ``blocked_rank_partial`` plus ``segment._combine``.
+  ``blocked_rank_partial`` plus ``segment._combine``;
+* ``dkernel.stencil_dkernel`` (csrc/stencil_dkernel.cu) replaces
+  ``stencil_dkernel``, the stencil's weight gradient;
+* ``tap_tables.stencil_tap_tables_sum`` (csrc/stencil_tap_tables_sum.cu)
+  replaces ``stencil_tap_tables_sum``, the correlation adjoint's gather-sum.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never falls back.  The one exception is
 explicit: inside ``with plain_kernels():`` the wrappers run their plain
-versions on every device, so that a caller can hold a whole forward against
-the plain path on the same card.  Each wrapper counts its launches in a
-plain int attribute, ``wrapper.launches``.
+versions on every device, so that a caller can hold a whole forward (and
+its backward) against the plain path on the same card.  Each wrapper counts
+its launches in a plain int attribute, ``wrapper.launches``.
 
 Sources are compiled with ``nvcc`` at first use into ``_build/`` (see
 ``_build.py``); importing this package needs neither ``nvcc`` nor a card.
@@ -22,8 +26,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
-__all__ = ["plain_kernels", "plain_forced"]
+__all__ = ["plain_kernels", "plain_forced", "backward_like_forward"]
 
 _PLAIN: contextvars.ContextVar = contextvars.ContextVar("plain_kernels",
                                                         default=False)
@@ -41,3 +46,17 @@ def plain_kernels(enabled: bool = True):
 
 def plain_forced() -> bool:
     return _PLAIN.get()
+
+
+def backward_like_forward(backward):
+    """Decorate an autograd Function's ``backward`` to run under the
+    ``plain_kernels()`` setting its forward saw (``ctx.plain_kernels``).
+
+    Autograd runs the backward of CUDA tensors on a thread of its own, which
+    does not inherit the caller's context variables.
+    """
+    @functools.wraps(backward)
+    def wrapped(ctx, *grads):
+        with plain_kernels(ctx.plain_kernels):
+            return backward(ctx, *grads)
+    return wrapped

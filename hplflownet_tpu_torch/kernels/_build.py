@@ -27,7 +27,8 @@ __all__ = ["SOURCES", "find_nvcc", "build", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_gather_matmul", "rank_reduce")
+SOURCES = ("stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
+           "stencil_tap_tables_sum")
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

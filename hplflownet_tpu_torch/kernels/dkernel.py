@@ -1,0 +1,111 @@
+"""``stencil_dkernel``: the weight gradient of the stencil contraction.
+
+    dW[f] = sum_v table[nb[f, v]]^T (x) g[v]                -> (F, C_in, C_out)
+
+Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``stencil_dkernel``
+(:340; ``pallas_call`` :406, body ``_dk_kernel`` :304).  On CUDA tensors the
+wrapper launches ``csrc/stencil_dkernel.cu``; on CPU tensors it runs
+:func:`stencil_dkernel_plain`.  The kernel source states its bound on the
+card and what its design does about it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import plain_forced
+from ._build import check, load
+
+__all__ = ["stencil_dkernel", "stencil_dkernel_plain", "vertex_splits"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TILE = 64            # the kernel's C_in and C_out tile
+_STAGE = 32           # vertices per stage
+_TARGET_BLOCKS = 528  # 4 blocks on each of the H100's 132 SMs
+_MIN_CHUNK = 8        # stages per vertex chunk, at least
+
+
+def stencil_dkernel_plain(table, neighbors, g):
+    """Plain PyTorch version: contract the materialised (F, H_out, C_in)
+    spread with the cotangent, in float32 (exact products for bf16)."""
+    c_in = table.shape[1]
+    pad = torch.cat([table.new_zeros(1, c_in), table]).to(torch.float32)
+    spread = pad[(neighbors + 1).long()]                    # (F, H_out, C_in)
+    return torch.einsum("fhi,ho->fio", spread, g.to(torch.float32))
+
+
+def vertex_splits(num_taps: int, c_in: int, c_out: int, h_out: int):
+    """(splits, chunk): how the kernel cuts the vertex axis.
+
+    A function of the shapes alone, so a rerun sums in the same order.
+    Output tiles too few to fill the card get more vertex chunks, each of at
+    least ``_MIN_CHUNK`` stages.
+    """
+    tiles = (-(-c_in // _TILE)) * (-(-c_out // _TILE)) * num_taps
+    stages = max(1, -(-h_out // _STAGE))
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), stages // _MIN_CHUNK))
+    chunk = -(-stages // splits) * _STAGE
+    return max(1, -(-h_out // chunk)), chunk
+
+
+def _check_args(table, neighbors, g):
+    if table.dtype not in _DTYPES or g.dtype != table.dtype:
+        raise TypeError(f"table and g must share float32 or bfloat16, got "
+                        f"{table.dtype} and {g.dtype}")
+    if neighbors.dtype != torch.int32:
+        raise TypeError(f"neighbors must be int32, got {neighbors.dtype}")
+    if table.dim() != 2 or neighbors.dim() != 2 or g.dim() != 2:
+        raise ValueError("expected table (H, C_in), neighbors (F, H_out), "
+                         "g (H_out, C_out)")
+    if g.shape[0] != neighbors.shape[1]:
+        raise ValueError(f"shape mismatch: neighbors {tuple(neighbors.shape)}, "
+                         f"g {tuple(g.shape)}")
+    for t in (table, neighbors, g):
+        if t.device != table.device:
+            raise ValueError("all arguments must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("arguments must be contiguous")
+
+
+def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
+                    neighbors: torch.Tensor,  # (F, H_out) int32, -1 absent
+                    g: torch.Tensor           # (H_out, C_out) cotangent
+                    ) -> torch.Tensor:
+    """dW[f] = sum_v table[neighbors[f, v]]^T g[v] -> (F, C_in, C_out) f32.
+
+    table and g are float32 or bfloat16 alike; sums are float32 and taps with
+    id -1 add nothing.  Deterministic: no atomics, a fixed summation order.
+    """
+    if table.device.type == "cpu" or plain_forced():
+        return stencil_dkernel_plain(table, neighbors, g)
+    if table.device.type != "cuda":
+        raise ValueError(f"no kernel for device {table.device}")
+    _check_args(table, neighbors, g)
+    f, h_out = neighbors.shape
+    h_in, c_in = table.shape
+    c_out = g.shape[1]
+    out = torch.empty((f, c_in, c_out), dtype=torch.float32, device=table.device)
+    splits, chunk = vertex_splits(f, c_in, c_out, h_out)
+    partial = (torch.empty((splits, f, c_in, c_out), dtype=torch.float32,
+                           device=table.device) if splits > 1 else None)
+    lib = load("stencil_dkernel")
+    fn = lib.hpl_stencil_dkernel
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = fn(table.data_ptr(), h_in, c_in, neighbors.data_ptr(), f, h_out,
+            g.data_ptr(), c_out, chunk, splits,
+            partial.data_ptr() if partial is not None else None,
+            out.data_ptr(), _DTYPES[table.dtype], stream)
+    check(lib, rc, "stencil_dkernel launch")
+    stencil_dkernel.launches += 1
+    return out
+
+
+stencil_dkernel.launches = 0

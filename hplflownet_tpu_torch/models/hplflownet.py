@@ -1,4 +1,4 @@
-"""HPLFlowNet: the full 7-scale scene-flow model (forward).
+"""HPLFlowNet: the full 7-scale scene-flow model.
 
 Port of ``hplflownet_tpu/models/hplflownet.py``: a 3-layer point MLP, a
 7-scale splat-only BCL encoder over both clouds, correlation BCLs at scales
@@ -6,7 +6,9 @@ Port of ``hplflownet_tpu/models/hplflownet.py``: a 3-layer point MLP, a
 concatenations, and a 3-layer prediction head.  Submodule and parameter
 names are the flax ones (``bcn1``, ``bcn1_``, ``corr1``, ``conv4``, ...),
 so a JAX parameter tree maps onto ``state_dict`` keys one for one
-(``hplflownet_tpu_torch.params``).
+(``hplflownet_tpu_torch.params``).  Differentiable through the ops'
+hand-derived backward passes; a pyramid built with ``adjoint_plans=True``
+carries the correlation inverse maps those need.
 
 Single-sample, channels-last.  Runs on the CUDA card unless ``device`` says
 otherwise; ``compute_dtype`` bfloat16 runs gathers and products in bf16 with
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..lattice.offsets import filter_size
+from ..lattice.offsets import filter_size, tap_negation
 from ..ops.bcl import BilateralConv
 from ..ops.corr import BilateralCorrelation
 from .layers import PointMLP
@@ -60,7 +62,9 @@ class HPLFlowNet(nn.Module):
                                  do_splat=do_splat, do_slice=not do_splat,
                                  use_norm=bcn_use_norm, use_bias=bcn_use_bias,
                                  use_leaky=use_leaky, last_relu=last_relu,
-                                 compute_dtype=dt, device=device)
+                                 compute_dtype=dt,
+                                 tap_negation=tap_negation(int(sfm[i][1]), d),
+                                 device=device)
 
         def corr(i, prev_dim):
             return BilateralCorrelation((32, 32), (64, 64), fs(sfm[i][3]),
@@ -69,7 +73,10 @@ class HPLFlowNet(nn.Module):
                                         use_norm=bcn_use_norm,
                                         use_leaky=use_leaky,
                                         last_relu=last_relu,
-                                        compute_dtype=dt, device=device)
+                                        compute_dtype=dt,
+                                        corr_tap_negation=tap_negation(
+                                            int(sfm[i][3]), d),
+                                        device=device)
 
         self.conv1 = PointMLP((32, 32, 64), dim, use_leaky=use_leaky,
                               compute_dtype=dt, device=device)
@@ -117,7 +124,7 @@ class HPLFlowNet(nn.Module):
         def correlate(mod, sp, f1, f2, prev):
             return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
                        sp.pc1_corr_indices, sp.pc2_corr_uniq,
-                       sp.pc2_corr_inverse)
+                       sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv)
 
         p1o1, p2o1 = down(self.bcn1, scales[0], feat1, feat2)
         p1o2, p2o2 = down(self.bcn2, scales[1], p1o1, p2o1)
@@ -136,7 +143,8 @@ class HPLFlowNet(nn.Module):
             # blur on scale s's lattice, slice onto scale s's points
             return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
                        out_barycentric=sp.pc1_barycentric,
-                       out_lattice_offset=sp.pc1_lattice_offset)
+                       out_lattice_offset=sp.pc1_lattice_offset,
+                       out_splat_plan=sp.pc1_splat_plan)
 
         out = up(self.bcn7_, _cat(c5, p1o7), scales[6])
         out = up(self.bcn6_, _cat(emg1(scales[6]), out, c4, p1o6), scales[5])

@@ -1,16 +1,22 @@
-"""Bilateral Convolution Layer (BCL): splat -> blur -> slice (forward).
+"""Bilateral Convolution Layer (BCL): splat -> blur -> slice.
 
-Port of the forward half of ``hplflownet_tpu/ops/bcl.py``:
+Port of ``hplflownet_tpu/ops/bcl.py``, forward and hand-derived backward.
+Like the JAX layer it is scatter-free in both directions: every gather of a
+differentiable tensor sits inside an autograd Function whose backward is a
+gather or a deterministic kernel, never ``index_add_`` / ``scatter_add_``.
 
 * ``splat``: barycentric-weighted reduction of point features onto lattice
   vertices through the lattice build's splat plan, normalised by
   ``1 / (density + 1e-5)``; the run sums go through the ``rank_reduce``
-  kernel on CUDA.
+  kernel on CUDA, the adjoint is a gather (``segment.weighted_reduce``).
 * ``blur``: the multi-tap stencil conv through the
   ``stencil_gather_matmul`` kernel, with the bias, activation and output
-  cast fused into its epilogue.
+  cast fused into its epilogue.  Its input gradient is the same kernel over
+  the negated-tap table with the kernel transposed (the stencil is closed
+  under negation); its weight gradient goes through ``stencil_dkernel``.
 * ``slice_to_points``: each point's d+1 vertices, barycentric-weighted;
-  absent vertices (id -1) get weight zero.
+  absent vertices (id -1) get weight zero.  Its adjoint is an unnormalised
+  splat of the cotangent through the same plan (``rank_reduce``).
 * ``BilateralConv``: the module, with the flax parameter names and layouts
   (``conv0_kernel`` is ``(F, C_in, C_out)``).
 
@@ -22,11 +28,15 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..device import device_constant, scalar
+from ..kernels import backward_like_forward, plain_forced
+from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
-from .segment import ReducePlan, weighted_reduce
+from .segment import ReducePlan, _wr_forward, weighted_reduce
 
 __all__ = ["splat", "blur", "slice_to_points", "BilateralConv",
            "LEAKY_RATE", "NORM_EPS", "activation", "dense"]
@@ -36,10 +46,14 @@ NORM_EPS = 1e-5
 
 
 def activation(x: torch.Tensor, use_leaky: bool) -> torch.Tensor:
-    """LeakyReLU(0.1) (``x >= 0 ? x : 0.1 x``) or ReLU, as jax.nn does it."""
+    """LeakyReLU(0.1) (``x >= 0 ? x : 0.1 x``) or ReLU, as jax.nn does it.
+
+    The gradients at exactly 0 are jax.nn's too: 1 for the leaky rule, 0 for
+    ReLU (``torch.clamp_min`` would give 1 there).
+    """
     if use_leaky:
         return torch.where(x >= 0, x, LEAKY_RATE * x)
-    return torch.clamp_min(x, 0)
+    return torch.where(x > 0, x, 0.0)
 
 
 def dense(x: torch.Tensor, k: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -64,38 +78,139 @@ def splat(features: torch.Tensor,     # (N, C)
     return torch.cat([out.new_zeros(1, c), out], dim=0)
 
 
+def _negation_index(tap_negation, device) -> torch.Tensor:
+    return device_constant(np.asarray(tap_negation, dtype=np.int64), device)
+
+
+def _act_grad(act_slope, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Cotangent through the activation, from its saved OUTPUT.
+
+    The activations are monotone: ReLU passes where y > 0 (gradient 0 at 0,
+    as jax.nn.relu); leaky passes where y >= 0, else slope * g in g's dtype
+    (gradient 1 at 0, as jax.nn.leaky_relu).
+    """
+    if act_slope is None:
+        return g
+    if act_slope == 0.0:
+        return torch.where(y > 0, g, 0.0)
+    return torch.where(y >= 0, g, scalar(act_slope, g.device, g.dtype) * g)
+
+
+class _Blur(torch.autograd.Function):
+    """``blur_matmul`` of the JAX package (bcl.py:111-283)."""
+
+    @staticmethod
+    def forward(ctx, splatted_pad, neighbors, kernel, bias, act_slope,
+                out_dtype, tap_negation):
+        ctx.plain_kernels = plain_forced()
+        y = stencil_gather_matmul(splatted_pad[1:].contiguous(),
+                                  neighbors.contiguous(), kernel.contiguous(),
+                                  bias=bias, act_slope=act_slope,
+                                  out_dtype=out_dtype)
+        ctx.act_slope = act_slope
+        ctx.tap_negation = tap_negation
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(splatted_pad, neighbors, kernel, y)
+        return y
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):
+        splatted_pad, neighbors, kernel, y = ctx.saved_tensors
+        dt = splatted_pad.dtype
+        gp = _act_grad(ctx.act_slope, y, g)
+        gc = gp.to(dt).contiguous()       # mixed-precision backward, as JAX
+        d_pad = d_kernel = d_bias = None
+        if ctx.needs_input_grad[0]:
+            if ctx.tap_negation is None:
+                raise ValueError("blur's input gradient needs tap_negation")
+            neg = _negation_index(ctx.tap_negation, neighbors.device)
+            # whoever reads vertex v through tap f is v's neighbour through
+            # the negated tap: the transpose is the same stencil
+            d_sp = stencil_gather_matmul(
+                gc, neighbors[neg].contiguous(),
+                kernel.transpose(1, 2).contiguous(), out_dtype=dt)
+            d_pad = torch.cat([d_sp.new_zeros(1, d_sp.shape[1]), d_sp])
+        if ctx.needs_input_grad[2]:
+            d_kernel = stencil_dkernel(splatted_pad[1:].contiguous(),
+                                       neighbors.contiguous(), gc
+                                       ).to(kernel.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[3]:
+            d_bias = gp.to(torch.float32).sum(dim=0)
+        return d_pad, None, d_kernel, d_bias, None, None, None
+
+
 def blur(splatted_pad: torch.Tensor,   # (H + 1, C_in), row 0 zero
          neighbors: torch.Tensor,      # (F, H) int32, -1 absent
          kernel: torch.Tensor,         # (F, C_in, C_out)
          bias: torch.Tensor | None,    # (C_out,) f32
          act_slope: float | None,
-         out_dtype: torch.dtype) -> torch.Tensor:
-    """act(stencil conv + bias) over the lattice -> (H, C_out)."""
-    return stencil_gather_matmul(splatted_pad[1:].contiguous(),
-                                 neighbors.contiguous(), kernel.contiguous(),
-                                 bias=bias, act_slope=act_slope,
-                                 out_dtype=out_dtype)
+         out_dtype: torch.dtype,
+         tap_negation: Sequence[int] | None = None) -> torch.Tensor:
+    """act(stencil conv + bias) over the lattice -> (H, C_out).
+
+    ``tap_negation`` (lattice.offsets.tap_negation of the stencil) is what
+    the input gradient needs; the forward does not read it.
+    """
+    return _Blur.apply(splatted_pad, neighbors, kernel, bias, act_slope,
+                       out_dtype, tap_negation)
+
+
+def _slice_impl(blurred, bary, offsets):
+    h = blurred.shape[0]
+    out = None
+    for r in range(offsets.shape[1]):
+        safe = offsets[:, r].clamp(0, h - 1).long()
+        term = bary[:, r, None] * blurred[safe].to(torch.float32)
+        out = term if out is None else out + term
+    return out
+
+
+class _Slice(torch.autograd.Function):
+    """``slice_to_points`` of the JAX package (bcl.py:290-337)."""
+
+    @staticmethod
+    def forward(ctx, blurred, out_barycentric, out_lattice_offset, plan):
+        ctx.plain_kernels = plain_forced()
+        bary = torch.where(out_lattice_offset >= 0, out_barycentric, 0.0)
+        ctx.plan = plan
+        ctx.save_for_backward(blurred, out_barycentric, out_lattice_offset)
+        return _slice_impl(blurred, bary, out_lattice_offset)
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):
+        blurred, bary, offsets = ctx.saved_tensors
+        d_blurred = d_bary = None
+        if ctx.needs_input_grad[0]:
+            if ctx.plan is None:
+                raise ValueError("slice's gradient needs the scale's splat plan")
+            # the unnormalised splat of the cotangent through the same plan
+            d_blurred = _wr_forward(False, ctx.plan, g.to(blurred.dtype),
+                                    bary).to(blurred.dtype)
+        if ctx.needs_input_grad[1]:
+            h = blurred.shape[0]
+            d_bary = torch.stack(
+                [torch.sum(g * blurred[offsets[:, r].clamp(0, h - 1).long()],
+                           dim=1) for r in range(offsets.shape[1])], dim=1)
+            d_bary = torch.where(offsets >= 0, d_bary, 0.0)
+        return d_blurred, d_bary, None, None
 
 
 def slice_to_points(blurred: torch.Tensor,             # (H, C)
                     out_barycentric: torch.Tensor,     # (N, d1) f32
                     out_lattice_offset: torch.Tensor,  # (N, d1) int32
+                    plan: ReducePlan | None = None,    # the scale's splat plan
                     ) -> torch.Tensor:
     """Barycentric combination of each point's d+1 vertices -> (N, C) f32.
 
     Id -1 marks an absent vertex: an invalid point (zero weight already) or
     a valid point whose vertex overflowed capacity (nonzero weight) — the
     clamp would alias the latter onto row 0, a real vertex, so its weight
-    is zeroed here.
+    is zeroed here.  ``plan`` (the splat plan of the same cloud and scale)
+    is what the gradient of ``blurred`` needs.
     """
-    h = blurred.shape[0]
-    bary = torch.where(out_lattice_offset >= 0, out_barycentric, 0.0)
-    out = None
-    for r in range(out_lattice_offset.shape[1]):
-        safe = out_lattice_offset[:, r].clamp(0, h - 1).long()
-        term = bary[:, r, None] * blurred[safe].to(torch.float32)
-        out = term if out is None else out + term
-    return out
+    return _Slice.apply(blurred, out_barycentric, out_lattice_offset, plan)
 
 
 class BilateralConv(nn.Module):
@@ -104,16 +219,20 @@ class BilateralConv(nn.Module):
     ``widths``: conv widths; the first conv contracts the stencil axis
     (``conv0_kernel`` of shape ``(filter_size, num_input, widths[0])``),
     the rest are pointwise (``conv{i}_kernel`` of shape ``(in, out)``).
-    Parameter names match the flax module one for one.
+    Parameter names match the flax module one for one.  ``tap_negation``
+    (the stencil's negation permutation) is needed for gradients only.
     """
 
     def __init__(self, widths: Sequence[int], filter_size: int,
                  num_input: int, do_splat: bool, do_slice: bool,
                  use_norm: bool = True, use_bias: bool = True,
                  use_leaky: bool = True, last_relu: bool = False,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32,
+                 tap_negation: Sequence[int] | None = None, device=None):
         super().__init__()
         self.widths = tuple(widths)
+        self.tap_negation = (tuple(tap_negation) if tap_negation is not None
+                             else None)
         self.do_splat = do_splat
         self.do_slice = do_slice
         self.use_norm = use_norm
@@ -136,7 +255,8 @@ class BilateralConv(nn.Module):
     def forward(self, features: torch.Tensor,  # (N_in, C) if splat else (H, C)
                 in_barycentric=None, splat_plan: ReducePlan | None = None,
                 blur_neighbors=None, out_barycentric=None,
-                out_lattice_offset=None) -> torch.Tensor:
+                out_lattice_offset=None,
+                out_splat_plan: ReducePlan | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         c = features.shape[-1]
         if self.do_splat:
@@ -152,7 +272,7 @@ class BilateralConv(nn.Module):
         else:
             slope = None
         x = blur(splatted_pad, blur_neighbors, self.conv0_kernel.to(dt),
-                 self.conv0_bias, slope, dt)
+                 self.conv0_bias, slope, dt, self.tap_negation)
 
         for i in range(1, len(self.widths)):
             x = (dense(x, getattr(self, f"conv{i}_kernel"), dt)
@@ -163,7 +283,8 @@ class BilateralConv(nn.Module):
 
         if not self.do_slice:
             return x
-        sliced = slice_to_points(x, out_barycentric, out_lattice_offset)
+        sliced = slice_to_points(x, out_barycentric, out_lattice_offset,
+                                 out_splat_plan)
         if self.use_bias:
             sliced = sliced + self.slice_bias
         return sliced.to(dt)

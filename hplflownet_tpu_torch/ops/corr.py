@@ -1,8 +1,8 @@
-"""Correlation BCL: cross-cloud patch correlation on the lattice (forward).
+"""Correlation BCL: cross-cloud patch correlation on the lattice.
 
-Port of the forward half of ``hplflownet_tpu/ops/corr.py``.  The first
-correlation conv is linear before its activation, so it splits into a
-*self* term (the same for every displacement f) and a *cross* term:
+Port of ``hplflownet_tpu/ops/corr.py``, forward and hand-derived backward.
+The first correlation conv is linear before its activation, so it splits
+into a *self* term (the same for every displacement f) and a *cross* term:
 
     y[f] = act(spread1 @ W_self + spread2[f] @ W_cross + b)
 
@@ -11,6 +11,16 @@ displaced patches of the cross term collapse onto U = 65 unique combined
 offsets, with the static (f, c) -> u map folded into the kernel ``k2``, so
 the cross term is one 65-tap stencil with an F * W wide output
 (``corr_cross``).  Both run through the ``stencil_gather_matmul`` kernel.
+
+Backward, scatter-free as in JAX:
+
+* ``corr_self``: the input gradient is the same stencil over the negated-tap
+  index table with the kernel transposed (``stencil_gather_matmul``), the
+  weight gradient goes through ``stencil_dkernel``;
+* ``corr_cross``: the tap-tables form of the JAX TPU path — one matmul
+  ``z = g @ k2^T`` gives every tap's table, and ``stencil_tap_tables_sum``
+  gathers them through the inverse map ``uniq_inv``; the weight gradient
+  goes through ``stencil_dkernel`` over the 65 unique taps.
 """
 
 from __future__ import annotations
@@ -20,8 +30,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..kernels import backward_like_forward, plain_forced
+from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
-from .bcl import activation, dense, splat
+from ..kernels.tap_tables import stencil_tap_tables_sum
+from .bcl import _negation_index, activation, dense, splat
 from .segment import ReducePlan
 
 __all__ = ["gather_rows", "corr_self", "corr_cross", "fold_cross_kernel",
@@ -29,30 +42,113 @@ __all__ = ["gather_rows", "corr_self", "corr_cross", "fold_cross_kernel",
 
 
 def gather_rows(table_pad: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """``table_pad[indices + 1]``: row 0 is the zero row for absent ids."""
+    """``table_pad[indices + 1]``: row 0 is the zero row for absent ids.
+
+    Forward only: the model does not call it, and its plan-based adjoint
+    (JAX ``apply_reduce_plan``) is not ported yet.
+    """
     return table_pad[(indices + 1).long()]
+
+
+class _CorrSelf(torch.autograd.Function):
+    """``corr_self`` of the JAX package (corr.py:71-129)."""
+
+    @staticmethod
+    def forward(ctx, table_pad, indices, k_self, bias, tap_negation):
+        ctx.plain_kernels = plain_forced()
+        ctx.tap_negation = tap_negation
+        ctx.save_for_backward(table_pad, indices, k_self)
+        return stencil_gather_matmul(table_pad[1:].contiguous(),
+                                     indices.contiguous(),
+                                     k_self.contiguous(), bias=bias)
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):                                   # g: (H1, W)
+        table_pad, indices, k_self = ctx.saved_tensors
+        dt = table_pad.dtype
+        gc = g.to(dt).contiguous()
+        d_table = d_k = d_bias = None
+        if ctx.needs_input_grad[0]:
+            if ctx.tap_negation is None:
+                raise ValueError("corr_self's input gradient needs tap_negation")
+            neg = _negation_index(ctx.tap_negation, indices.device)
+            d_rows = stencil_gather_matmul(
+                gc, indices[neg].contiguous(),
+                k_self.transpose(1, 2).contiguous().to(dt), out_dtype=dt)
+            d_table = torch.cat([d_rows.new_zeros(1, d_rows.shape[1]), d_rows])
+        if ctx.needs_input_grad[2]:
+            d_k = stencil_dkernel(table_pad[1:].contiguous(),
+                                  indices.contiguous(), gc).to(k_self.dtype)
+        if ctx.needs_input_grad[3]:
+            d_bias = g.to(torch.float32).sum(dim=0)
+        return d_table, None, d_k, d_bias, None
 
 
 def corr_self(table_pad: torch.Tensor,   # (H1 + 1, C), row 0 zero
               indices: torch.Tensor,     # (Cc, H1) int32, -1 absent
               k_self: torch.Tensor,      # (Cc, C, W)
               bias: torch.Tensor,        # (W,) f32, fused into the epilogue
+              tap_negation: Sequence[int] | None = None,
               ) -> torch.Tensor:
-    """sum_k table_pad[indices[k] + 1] @ k_self[k] + bias -> (H1, W) f32."""
-    return stencil_gather_matmul(table_pad[1:].contiguous(),
-                                 indices.contiguous(), k_self.contiguous(),
-                                 bias=bias)
+    """sum_k table_pad[indices[k] + 1] @ k_self[k] + bias -> (H1, W) f32.
+
+    ``tap_negation`` (of the correlation stencil) is what the input gradient
+    needs; the forward does not read it.
+    """
+    return _CorrSelf.apply(table_pad, indices, k_self, bias, tap_negation)
+
+
+class _CorrCross(torch.autograd.Function):
+    """``corr_cross`` of the JAX package (corr.py:136-234), tap-tables
+    adjoint."""
+
+    @staticmethod
+    def forward(ctx, pad2, uniq_idx, k2, uniq_inv):
+        ctx.plain_kernels = plain_forced()
+        u, c, f, w = k2.shape
+        ctx.uniq_inv = uniq_inv
+        ctx.save_for_backward(pad2, uniq_idx, k2)
+        flat = stencil_gather_matmul(pad2[1:].contiguous(),
+                                     uniq_idx.contiguous(),
+                                     k2.reshape(u, c, f * w).contiguous())
+        return flat.reshape(flat.shape[0], f, w)
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):                                   # g: (H1, F, W)
+        pad2, uniq_idx, k2 = ctx.saved_tensors
+        u, c, f, w = k2.shape
+        dt = pad2.dtype
+        f32 = torch.float32
+        g_flat = g.to(dt).reshape(g.shape[0], f * w).contiguous()
+        d_pad2 = d_k2 = None
+        if ctx.needs_input_grad[0]:
+            if ctx.uniq_inv is None:
+                raise ValueError("corr_cross's input gradient needs uniq_inv")
+            # z[:, u*C:(u+1)*C] = g @ k2[u]^T, every tap's table in one
+            # product, rounded to the compute dtype as in JAX
+            k2m = k2.reshape(u, c, f * w).permute(2, 0, 1).reshape(f * w, u * c)
+            z = (g_flat.to(f32) @ k2m.to(f32)).to(dt)
+            d_rows = stencil_tap_tables_sum(z, c, ctx.uniq_inv.contiguous())
+            d_pad2 = torch.cat([d_rows.new_zeros(1, c), d_rows]).to(dt)
+        if ctx.needs_input_grad[2]:
+            d_k2 = stencil_dkernel(pad2[1:].contiguous(), uniq_idx.contiguous(),
+                                   g_flat).reshape(u, c, f, w).to(k2.dtype)
+        return d_pad2, None, d_k2, None
 
 
 def corr_cross(pad2: torch.Tensor,       # (H2 + 1, C)
                uniq_idx: torch.Tensor,   # (U, H1) unique-offset index rows
                k2: torch.Tensor,         # (U, C, F, W) folded kernel
+               uniq_inv: torch.Tensor | None = None,  # (U, H2) adjoint map
                ) -> torch.Tensor:
-    """cross[h, f, w] = sum_u pad2[uniq_idx[u, h] + 1] @ k2[u] -> (H1, F, W)."""
-    u, c, f, w = k2.shape
-    flat = stencil_gather_matmul(pad2[1:].contiguous(), uniq_idx.contiguous(),
-                                 k2.reshape(u, c, f * w).contiguous())
-    return flat.reshape(flat.shape[0], f, w)
+    """cross[h, f, w] = sum_u pad2[uniq_idx[u, h] + 1] @ k2[u] -> (H1, F, W).
+
+    ``uniq_inv`` (the lattice build's ``pc2_corr_uniq_inv``) is what the
+    gradient of ``pad2`` needs; the forward does not read it.
+    """
+    return _CorrCross.apply(pad2, uniq_idx, k2, uniq_inv)
 
 
 def fold_cross_kernel(k_cross: torch.Tensor,   # (Cc, C, W)
@@ -61,12 +157,13 @@ def fold_cross_kernel(k_cross: torch.Tensor,   # (Cc, C, W)
     """k2[u, :, f] = sum_{c : inverse[f, c] == u} k_cross[c] -> (U, C, F, W).
 
     For one f the combined offsets are distinct, so each (u, f) takes at
-    most one term: the fold is an exact selection.
+    most one term: the fold is an exact selection.  ``k_cross`` is rounded
+    to ``dt`` first, as in JAX, so its gradient is rounded there too.
     """
     uid = torch.arange(n_uniq, dtype=inverse.dtype, device=inverse.device)
     onehot = (inverse[..., None] == uid).to(torch.float32)    # (F, Cc, U)
     return torch.einsum("fku,kcw->ucfw", onehot,
-                        k_cross.to(torch.float32)).to(dt)
+                        k_cross.to(dt).to(torch.float32)).to(dt)
 
 
 class BilateralCorrelation(nn.Module):
@@ -76,14 +173,19 @@ class BilateralCorrelation(nn.Module):
     ``(corr_size, self_dim + num_input, corr_widths[0])`` with input
     channels ordered [prev, feat1 | feat2], ``blur0_kernel``
     ``(filter_size, corr_widths[-1], widths[0])``, the rest pointwise.
+    ``corr_tap_negation`` (the correlation stencil's negation permutation)
+    and the forward's ``pc2_corr_uniq_inv`` are needed for gradients only.
     """
 
     def __init__(self, corr_widths: Sequence[int], widths: Sequence[int],
                  corr_size: int, filter_size: int, num_input: int,
                  prev_corr_dim: int = 0, use_norm: bool = True,
                  use_leaky: bool = True, last_relu: bool = False,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32,
+                 corr_tap_negation: Sequence[int] | None = None, device=None):
         super().__init__()
+        self.corr_tap_negation = (tuple(corr_tap_negation)
+                                  if corr_tap_negation is not None else None)
         self.corr_widths = tuple(corr_widths)
         self.widths = tuple(widths)
         self.prev_corr_dim = prev_corr_dim
@@ -115,6 +217,7 @@ class BilateralCorrelation(nn.Module):
                 pc1_corr_indices: torch.Tensor,   # (Cc, H1)
                 pc2_corr_uniq: torch.Tensor,      # (U, H1)
                 pc2_corr_inverse: torch.Tensor,   # (F, Cc) -> u
+                pc2_corr_uniq_inv: torch.Tensor | None = None,  # (U, H2)
                 ) -> torch.Tensor:
         dt = self.compute_dtype
         f32 = torch.float32
@@ -135,10 +238,11 @@ class BilateralCorrelation(nn.Module):
         # ---- patch-correlation stage ----
         k_self = self.corr0_kernel[:, :self.self_dim, :].to(dt)
         k_cross = self.corr0_kernel[:, self.self_dim:, :]
-        a_self = corr_self(combined1, pc1_corr_indices, k_self, self.corr0_bias)
+        a_self = corr_self(combined1, pc1_corr_indices, k_self,
+                           self.corr0_bias, self.corr_tap_negation)
         k2 = fold_cross_kernel(k_cross, pc2_corr_inverse,
                                pc2_corr_uniq.shape[0], dt)
-        cross = corr_cross(pad2, pc2_corr_uniq, k2)
+        cross = corr_cross(pad2, pc2_corr_uniq, k2, pc2_corr_uniq_inv)
         y = activation(a_self[:, None, :] + cross, self.use_leaky)  # (H1, F, W)
 
         h1, nf, _ = y.shape

@@ -1,6 +1,7 @@
-"""Deterministic segment reductions for lattice splatting (forward).
+"""Deterministic segment reductions for lattice splatting.
 
-Port of the forward half of ``hplflownet_tpu/ops/segment.py``.  A
+Port of ``hplflownet_tpu/ops/segment.py`` (the plans and ``weighted_reduce``
+with its adjoint; ``apply_reduce_plan`` is not ported yet).  A
 :class:`ReducePlan` sorts a flat (M,) array of target ids once and records
 each target's contiguous run ``[start, end)`` in sorted order; a reduction
 then sums each run.  The lattice build's splat plans are rank-mode plans
@@ -12,7 +13,9 @@ package still holds — invalid entries carry exact zeros — but this port
 never needs it: its runs exclude them.
 
 No float atomics anywhere (no ``index_add_`` / ``scatter_add_``): every run
-is summed in a fixed order, so a rerun matches bit for bit.
+is summed in a fixed order, so a rerun matches bit for bit.  The adjoint of
+a reduction is R row gathers of the cotangent (the reference's
+SparseSum.backward rule), so the backward needs no scatter either.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import backward_like_forward, plain_forced
 from ..kernels.splat import rank_reduce
 
 __all__ = ["ReducePlan", "local_ranks", "make_reduce_plan", "weighted_reduce"]
@@ -74,6 +78,53 @@ def make_reduce_plan(ids: torch.Tensor, num_targets: int) -> ReducePlan:
                       r0=torch.zeros(1, dtype=torch.int32, device=flat.device))
 
 
+def _wr_forward(with_weights: bool, plan: ReducePlan, rows: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    r = weights.shape[1]
+    c = rows.shape[1]
+    perm = plan.perm.long()
+    cat = torch.cat([rows, weights.to(rows.dtype)], dim=1)     # (N, C+R)
+    g = cat[perm // r]                                          # (M, C+R)
+    rid = (perm % r).to(torch.int32)
+    return rank_reduce(g, rid, plan.start, plan.end, c, with_weights)
+
+
+class _WeightedReduce(torch.autograd.Function):
+    """Forward through ``rank_reduce``; backward ``_wr_bwd`` of the JAX
+    package (segment.py:432-449): R row gathers of the float32 cotangent."""
+
+    @staticmethod
+    def forward(ctx, with_weights, plan, rows, weights):
+        ctx.plain_kernels = plain_forced()
+        ctx.with_weights = with_weights
+        ctx.plan = plan
+        ctx.save_for_backward(rows, weights)
+        return _wr_forward(with_weights, plan, rows, weights)
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):
+        rows, weights = ctx.saved_tensors
+        n, c = rows.shape
+        r = weights.shape[1]
+        t = ctx.plan.start.shape[0]
+        ids = ctx.plan.ids.reshape(n, r)
+        want_rows, want_w = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        gf = g.to(torch.float32)
+        d_rows = rows.new_zeros((n, c), dtype=torch.float32) if want_rows else None
+        d_w = []
+        for k in range(r):
+            present = (ids[:, k] >= 0)[:, None]
+            grow = torch.where(present, gf[ids[:, k].clamp(0, t - 1).long()], 0.0)
+            if want_rows:
+                d_rows = d_rows + weights[:, k, None] * grow[:, :c]
+            if want_w:
+                dwk = torch.sum(rows.to(torch.float32) * grow[:, :c], dim=1)
+                d_w.append(dwk + grow[:, c] if ctx.with_weights else dwk)
+        return (None, None, d_rows.to(rows.dtype) if want_rows else None,
+                torch.stack(d_w, dim=1) if want_w else None)
+
+
 def weighted_reduce(with_weights: bool, plan: ReducePlan,
                     rows: torch.Tensor,      # (N, C)
                     weights: torch.Tensor    # (N, R) f32
@@ -85,12 +136,7 @@ def weighted_reduce(with_weights: bool, plan: ReducePlan,
     gathered once in sorted order, in ``rows.dtype``: a bf16 stream rounds
     the weights to bf16 and each product to bf16 before the float32 sum,
     as the JAX package does.  The run sums go through the ``rank_reduce``
-    kernel (csrc/rank_reduce.cu) on CUDA tensors.
+    kernel (csrc/rank_reduce.cu) on CUDA tensors.  Differentiable in
+    ``rows`` and ``weights``; the gradient of ``rows`` is cast to its dtype.
     """
-    r = weights.shape[1]
-    c = rows.shape[1]
-    perm = plan.perm.long()
-    cat = torch.cat([rows, weights.to(rows.dtype)], dim=1)     # (N, C+R)
-    g = cat[perm // r]                                          # (M, C+R)
-    rid = (perm % r).to(torch.int32)
-    return rank_reduce(g, rid, plan.start, plan.end, c, with_weights)
+    return _WeightedReduce.apply(with_weights, plan, rows, weights)

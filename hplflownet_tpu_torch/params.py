@@ -1,4 +1,5 @@
-"""Carry JAX parameter trees across to the port, and seeded parameters.
+"""Carry JAX parameter and optimizer trees across to the port, and seeded
+parameters.
 
 A JAX parameter tree is nested dicts of arrays, ``{"params": {module:
 {name: array}}}`` — the format of the trained-weight pickles.  The port's
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax", "seeded_jax_params"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "seeded_jax_params"]
 
 
 def _flatten(tree, prefix=""):
@@ -26,6 +27,13 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def _tensors(tree, device) -> dict:
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)).to(device)
+            for k, v in _flatten(tree)}
+
+
 def params_from_jax(tree: dict, model: nn.Module | None = None):
     """The port's ``state_dict`` for a JAX parameter tree.
 
@@ -33,10 +41,7 @@ def params_from_jax(tree: dict, model: nn.Module | None = None):
     With ``model``, the state is loaded into it (strict: every name and
     shape must match) and the model is returned.
     """
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    state = {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
-             for k, v in _flatten(tree)}
+    state = _tensors(tree, "cpu")
     if model is None:
         return state
     own = model.state_dict()
@@ -46,6 +51,33 @@ def params_from_jax(tree: dict, model: nn.Module | None = None):
                              f"{tuple(own[k].shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def opt_state_from_jax(opt_state, device=None):
+    """The port's ``AdamState`` for an optax ``inject_hyperparams(adam)``
+    state whose leaves are numpy arrays (``jax.device_get`` of it).
+
+    ``opt_state`` is that state object (``.inner_state[0]`` holds mu, nu and
+    count, ``.hyperparams["learning_rate"]`` the rate) or a dict with keys
+    ``mu``, ``nu``, ``count`` and ``learning_rate``.  The moments' trees map
+    onto ``state_dict`` names as :func:`params_from_jax` maps parameters.
+    ``device`` defaults to the CUDA card.
+    """
+    from .device import resolve_device
+    from .train.step import AdamState
+    dev = resolve_device(device)
+    if isinstance(opt_state, dict):
+        mu, nu = opt_state["mu"], opt_state["nu"]
+        count, lr = opt_state["count"], opt_state["learning_rate"]
+    else:
+        adam = opt_state.inner_state[0]
+        mu, nu, count = adam.mu, adam.nu, adam.count
+        lr = opt_state.hyperparams["learning_rate"]
+    return AdamState(
+        mu=_tensors(mu, dev), nu=_tensors(nu, dev),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev),
+        learning_rate=torch.tensor(float(np.asarray(lr)), dtype=torch.float32,
+                                   device=dev))
 
 
 def seeded_jax_params(model: nn.Module, seed: int = 0) -> dict:

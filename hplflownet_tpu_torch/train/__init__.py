@@ -1,0 +1,5 @@
+"""Training of the port: the train/eval steps (Adam) and LR schedules."""
+
+from .schedule import lr_at_epoch, make_lr_schedule  # noqa: F401
+from .step import (AdamState, TrainState, create_train_state,  # noqa: F401
+                   make_eval_step, make_train_step, set_learning_rate)

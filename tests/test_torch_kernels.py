@@ -2,7 +2,9 @@
 
 On the CPU each wrapper runs its plain PyTorch version; here those are held
 against the Pallas kernels run in interpret mode, on the inputs of the
-JAX suite's own cases (tests/test_pallas_stencil.py), in float32.  A
+JAX suite's own cases (tests/test_pallas_stencil.py), in float32: the
+forward stencil, the splat reduction, the stencil's weight gradient
+(``stencil_dkernel``) and the per-tap-table gather-sum.  A
 ``cuda``-marked test holds the CUDA kernels against the plain versions on a
 card and skips without one.
 """
@@ -14,12 +16,20 @@ import pytest
 import torch
 
 from hplflownet_tpu.ops.pallas_stencil import (blocked_rank_partial,
-                                               stencil_gather_matmul as pallas_stencil)
+                                               stencil_dkernel as pallas_dkernel,
+                                               stencil_gather_matmul as pallas_stencil,
+                                               stencil_tap_tables_sum as pallas_tts)
 from hplflownet_tpu.ops.segment import ReducePlan, _combine, local_ranks
-from hplflownet_tpu_torch.kernels import plain_kernels, stencil, splat
+from hplflownet_tpu_torch.kernels import (dkernel, plain_kernels, splat, stencil,
+                                          tap_tables)
+from hplflownet_tpu_torch.kernels.dkernel import (stencil_dkernel,
+                                                  stencil_dkernel_plain,
+                                                  vertex_splits)
 from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
 from hplflownet_tpu_torch.kernels.stencil import (stencil_gather_matmul,
                                                   stencil_gather_matmul_plain)
+from hplflownet_tpu_torch.kernels.tap_tables import (
+    stencil_tap_tables_sum, stencil_tap_tables_sum_plain)
 
 
 def _mk(rng, h, f, c, co, drift):
@@ -63,6 +73,56 @@ def test_stencil_plain_matches_pallas_interpret(seed, h, f, c, co, drift,
     else:
         # float32 sums of F * C_in products in another order
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_dkernel_plain_matches_pallas_interpret():
+    """tests/test_pallas_stencil.py:115's case: dW through the windowed
+    Pallas kernel (interpret mode) == the port's plain version."""
+    rng = np.random.RandomState(4)
+    table, nb, _ = _mk(rng, 2000, 15, 36, 0, drift=30)
+    g = rng.randn(nb.shape[1], 24).astype(np.float32)
+    want = np.asarray(jax.jit(lambda t, n, gg: pallas_dkernel(
+        t, n, gg, interpret=True))(table, nb, g))
+    got = stencil_dkernel(torch.from_numpy(table), torch.from_numpy(nb),
+                          torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == (15, 36, 24)
+    # float32 sums of up to 2000 products in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def _tap_tables_case():
+    """tests/test_pallas_stencil.py:133's tables and neighbour rows."""
+    rng = np.random.RandomState(5)
+    f, h, hout, c = 10, 1800, 1500, 128
+    tables = rng.randn(h, f * c).astype(np.float32)
+    nb = np.stack([
+        np.sort(np.clip(np.arange(hout) * h // hout
+                        + rng.randint(-30, 30, hout), 0, h - 1))
+        for _ in range(f)]).astype(np.int32)
+    nb = np.where(rng.rand(f, hout) < 0.1, -1, nb).astype(np.int32)
+    return tables, nb, c
+
+
+def test_tap_tables_sum_plain_matches_pallas_interpret():
+    tables, nb, c = _tap_tables_case()
+    want = np.asarray(jax.jit(lambda t, n: pallas_tts(
+        t, c, n, group=4, interpret=True))(tables, nb))
+    got = stencil_tap_tables_sum(torch.from_numpy(tables), c,
+                                 torch.from_numpy(nb))
+    assert got.dtype == torch.float32 and got.shape == (nb.shape[1], c)
+    # ten float32 terms per element, summed in tap order on both sides
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+def test_dkernel_vertex_splits_cover_the_vertices_in_fixed_chunks():
+    # the flagship's three weight-gradient shapes and a tiny one
+    for f, c_in, c_out, h in ((15, 580, 1024, 25600), (15, 128, 32, 12928),
+                              (65, 64, 480, 12928), (15, 20, 8, 100)):
+        splits, chunk = vertex_splits(f, c_in, c_out, h)
+        assert chunk % 32 == 0 and splits * chunk >= h > (splits - 1) * chunk
+        assert vertex_splits(f, c_in, c_out, h) == (splits, chunk)
+    assert vertex_splits(15, 580, 1024, 25600)[0] == 1    # 2400 tiles: enough
+    assert vertex_splits(15, 128, 32, 12928)[0] > 1       # 30 tiles: split
 
 
 def _runs(same):
@@ -125,16 +185,53 @@ def test_rank_reduce_rounds_bf16_products_before_the_sum():
 def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
     rng = np.random.RandomState(1)
     table, nb, kern = (torch.from_numpy(a) for a in _mk(rng, 50, 15, 8, 4, 5))
-    before = (stencil_gather_matmul.launches, rank_reduce.launches)
+    wrappers = (stencil_gather_matmul, rank_reduce, stencil_dkernel,
+                stencil_tap_tables_sum)
+    before = [w.launches for w in wrappers]
     out = stencil_gather_matmul(table, nb, kern)
     torch.testing.assert_close(out, stencil_gather_matmul_plain(table, nb, kern))
     g = torch.randn(20, 6)
     rid = torch.zeros(20, dtype=torch.int32)
     bounds = torch.tensor([0, 20], dtype=torch.int32)
     rank_reduce(g, rid, bounds[:1], bounds[1:], 5)
+    cot = torch.randn(50, 4)
+    torch.testing.assert_close(stencil_dkernel(table, nb, cot),
+                               stencil_dkernel_plain(table, nb, cot))
+    tabs = torch.randn(50, 15 * 3)
+    torch.testing.assert_close(stencil_tap_tables_sum(tabs, 3, nb),
+                               stencil_tap_tables_sum_plain(tabs, 3, nb))
     with plain_kernels():
         stencil_gather_matmul(table, nb, kern)
-    assert (stencil_gather_matmul.launches, rank_reduce.launches) == before
+    assert [w.launches for w in wrappers] == before
+
+
+def test_backward_runs_under_its_forwards_plain_setting_on_another_thread():
+    """Autograd runs the backward of CUDA tensors on a thread of its own,
+    which does not inherit ``plain_kernels()``: the decorated backward
+    re-enters the setting its forward recorded."""
+    import threading
+
+    from hplflownet_tpu_torch.kernels import backward_like_forward, plain_forced
+    seen = {}
+
+    def bare(ctx, g):
+        seen["bare"] = plain_forced()
+
+    @backward_like_forward
+    def decorated(ctx, g):
+        seen["decorated"] = plain_forced()
+
+    class Ctx:
+        plain_kernels = True
+
+    with plain_kernels():
+        for fn in (bare, decorated):
+            th = threading.Thread(target=fn, args=(Ctx, None))
+            th.start()
+            th.join(timeout=10)
+            assert not th.is_alive()
+    assert seen == {"bare": False, "decorated": True}
+    assert plain_forced() is False
 
 
 def test_argument_checks_reject_what_the_kernels_do_not_take():
@@ -161,6 +258,22 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
         splat._check_args(g, rid.long(), se, se, 4)
     with pytest.raises(ValueError):
         splat._check_args(g, rid[:4], se, se, 4)
+    gg = torch.zeros(5, 2)
+    dkernel._check_args(t, nb, gg)
+    with pytest.raises(TypeError):
+        dkernel._check_args(t, nb, gg.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        dkernel._check_args(t, nb, torch.zeros(4, 2))
+    with pytest.raises(ValueError):
+        dkernel._check_args(t, nb, torch.zeros(2, 5).t())
+    tabs = torch.zeros(10, 3 * 4)
+    tap_tables._check_args(tabs, 4, nb)
+    with pytest.raises(ValueError):
+        tap_tables._check_args(tabs, 3, nb)
+    with pytest.raises(TypeError):
+        tap_tables._check_args(tabs.double(), 4, nb)
+    with pytest.raises(TypeError):
+        tap_tables._check_args(tabs, 4, nb.long())
 
 
 @pytest.mark.cuda
@@ -188,3 +301,22 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
         assert torch.equal(got, rank_reduce(g.to(dt), rid, start, end, 68, True))
         want = rank_reduce_plain(g.to(dt), rid, start, end, 68, True)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    # the weight gradient at a split (15 x 128 -> 32) and an unsplit shape
+    for f, h, c_in, c_out in ((15, 3000, 128, 32), (15, 3000, 68, 200)):
+        table, nb, _ = _mk(rng, h, f, c_in, 0, 40)
+        cot = torch.randn(h, c_out, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(table).to(dev, dt)
+            n = torch.from_numpy(nb).to(dev)
+            got = stencil_dkernel(t, n, cot.to(dt))
+            assert torch.equal(got, stencil_dkernel(t, n, cot.to(dt)))
+            want = stencil_dkernel_plain(t, n, cot.to(dt))
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+    tables, nb, c = _tap_tables_case()
+    for dt in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(tables).to(dev, dt)
+        n = torch.from_numpy(nb).to(dev)
+        torch.testing.assert_close(stencil_tap_tables_sum(t, c, n),
+                                   stencil_tap_tables_sum_plain(t, c, n),
+                                   rtol=1e-6, atol=1e-5)

@@ -230,3 +230,148 @@ def test_bilateral_correlation_module_matches_flax():
                    torch.from_numpy(prev), sp.pc1_barycentric, sp.pc1_splat_plan,
                    sp.pc1_corr_indices, sp.pc2_corr_uniq, sp.pc2_corr_inverse)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# backward: each autograd Function against jax.vjp of the JAX function
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, want, bf16):
+    """float32: sums in another order (atol 1e-5 of the largest value);
+    bf16: cotangents and products round to bf16 at the same places, a sum
+    may land one bf16 ulp (2^-8) apart and carry (atol 1e-2 of the largest)."""
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=(1e-2 if bf16 else 1e-5) * scale)
+
+
+def _leaf(a, dt):
+    return torch.from_numpy(np.asarray(a)).to(dt).requires_grad_(True)
+
+
+def test_relu_and_leaky_gradients_at_zero_match_jax():
+    x = np.asarray([0.0, -1.0, 1.0], np.float32)
+    for use_leaky, jfn, at_zero in (
+            (False, jax.nn.relu, 0.0),
+            (True, lambda v: jax.nn.leaky_relu(v, 0.1), 1.0)):
+        want = np.asarray(jax.grad(lambda v: jnp.sum(jfn(v)))(jnp.asarray(x)))
+        assert want[0] == at_zero
+        t = torch.from_numpy(x).requires_grad_(True)
+        bcl.activation(t, use_leaky).sum().backward()
+        np.testing.assert_array_equal(t.grad.numpy(), want)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("with_w", [False, True])
+def test_weighted_reduce_vjp_matches_jax(jdt, tdt, with_w):
+    scales, rng = _pyramid()
+    sp = scales[1]                       # vertex points, some invalid
+    n = sp.pc1_barycentric.shape[0]
+    rows = rng.randn(n, 12).astype(np.float32)
+    w = sp.pc1_barycentric.numpy()
+    plan = sp.pc1_splat_plan
+    ct = rng.randn(plan.start.shape[0], 12 + int(with_w)).astype(np.float32)
+    _, vjp = jax.vjp(lambda r, ww: jseg.weighted_reduce(with_w, _j(plan), r, ww),
+                     jnp.asarray(rows, jdt), jnp.asarray(w))
+    want_rows, want_w = vjp(jnp.asarray(ct))
+    tr, tw = _leaf(rows, tdt), _leaf(w, torch.float32)
+    out = segment.weighted_reduce(with_w, plan, tr, tw)
+    got_rows, got_w = torch.autograd.grad(out, (tr, tw), torch.from_numpy(ct))
+    assert got_rows.dtype == tdt
+    _grads_close(got_rows, want_rows, tdt == torch.bfloat16)
+    _grads_close(got_w, want_w, False)   # float32 either way, as in JAX
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("slope", [None, 0.0, 0.1])
+def test_blur_vjp_matches_jax(jdt, tdt, slope):
+    scales, rng = _pyramid()
+    sp = scales[0]
+    nb = sp.pc1_blur_neighbors
+    h = nb.shape[1]
+    table = rng.randn(h + 1, 20).astype(np.float32)
+    table[0] = 0.0
+    kern = (rng.randn(15, 20, 24) * 0.2).astype(np.float32)
+    # biases that put exact zeros before the activation where the stencil
+    # is empty (padding rows), the case whose gradient rule differs
+    bias = np.where(rng.rand(24) < 0.3, 0.0, rng.randn(24)).astype(np.float32)
+    out_dt = jnp.dtype(jdt).name
+    y, vjp = jax.vjp(lambda t, k, b: jbcl.blur_matmul(
+        NEG15, slope, out_dt, t, _j(nb), k, b),
+        jnp.asarray(table, jdt), jnp.asarray(kern, jdt), jnp.asarray(bias))
+    ct = jnp.asarray(rng.randn(*y.shape).astype(np.float32), jdt)
+    want = vjp(ct)
+    leaves = (_leaf(table, tdt), _leaf(kern, tdt), _leaf(bias, torch.float32))
+    out = bcl.blur(leaves[0], nb, leaves[1], leaves[2], slope, tdt, NEG15)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(_np(ct).copy()).to(tdt))
+    assert [g.dtype for g in got] == [tdt, tdt, torch.float32]
+    for g, w in zip(got, want):
+        _grads_close(g, w, tdt == torch.bfloat16)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_slice_vjp_matches_jax(jdt, tdt):
+    scales, rng = _pyramid(caps=(160, 64, 32))     # overflowing vertices too
+    for sp in scales:
+        h = sp.pc1_blur_neighbors.shape[1]
+        blurred = rng.randn(h, 16).astype(np.float32)
+        bary = sp.pc1_barycentric.numpy()
+        y, vjp = jax.vjp(lambda b, w: jbcl.slice_to_points(
+            b, w, _j(sp.pc1_lattice_offset), _j(sp.pc1_splat_plan)),
+            jnp.asarray(blurred, jdt), jnp.asarray(bary))
+        ct = rng.randn(*y.shape).astype(np.float32)
+        want_b, want_w = vjp(jnp.asarray(ct))
+        tb, tw = _leaf(blurred, tdt), _leaf(bary, torch.float32)
+        out = bcl.slice_to_points(tb, tw, sp.pc1_lattice_offset,
+                                  sp.pc1_splat_plan)
+        got_b, got_w = torch.autograd.grad(out, (tb, tw), torch.from_numpy(ct))
+        assert got_b.dtype == tdt
+        _grads_close(got_b, want_b, tdt == torch.bfloat16)
+        _grads_close(got_w, want_w, False)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_corr_self_and_corr_cross_vjps_match_jax(jdt, tdt):
+    """corr_cross: the port's tap-tables adjoint (z = g @ k2^T, then the
+    gather-sum through uniq_inv) equals the JAX CPU path's plain stencil
+    over the cotangent."""
+    scales, rng = _pyramid()
+    sp = scales[1]
+    h1 = sp.pc1_blur_neighbors.shape[1]
+    h2 = sp.pc2_blur_neighbors.shape[1]
+    c, w = 12, 8
+    bf16 = tdt == torch.bfloat16
+    pad1 = rng.randn(h1 + 1, 2 * c).astype(np.float32)
+    pad2 = rng.randn(h2 + 1, c).astype(np.float32)
+    pad1[0] = pad2[0] = 0.0
+    k_self = (rng.randn(15, 2 * c, w) * 0.2).astype(np.float32)
+    bias = rng.randn(w).astype(np.float32)
+    y, vjp = jax.vjp(lambda t, k, b: jcorr.corr_self(
+        NEG15, t, _j(sp.pc1_corr_indices), k, b),
+        jnp.asarray(pad1, jdt), jnp.asarray(k_self, jdt), jnp.asarray(bias))
+    ct = rng.randn(*y.shape).astype(np.float32)
+    want = vjp(jnp.asarray(ct))
+    leaves = (_leaf(pad1, tdt), _leaf(k_self, tdt), _leaf(bias, torch.float32))
+    out = corr.corr_self(leaves[0], sp.pc1_corr_indices, leaves[1], leaves[2],
+                         NEG15)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(ct))
+    for g, wnt in zip(got, want):
+        _grads_close(g, wnt, bf16)
+
+    u = sp.pc2_corr_uniq.shape[0]
+    k2 = (rng.randn(u, c, 15, w) * 0.2).astype(np.float32)
+    y, vjp = jax.vjp(lambda p, k: jcorr.corr_cross(
+        p, _j(sp.pc2_corr_uniq), k, _j(sp.pc2_corr_uniq_inv)),
+        jnp.asarray(pad2, jdt), jnp.asarray(k2, jdt))
+    ct = rng.randn(*y.shape).astype(np.float32)
+    want = vjp(jnp.asarray(ct))
+    leaves = (_leaf(pad2, tdt), _leaf(k2, tdt))
+    out = corr.corr_cross(leaves[0], sp.pc2_corr_uniq, leaves[1],
+                          sp.pc2_corr_uniq_inv)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(ct))
+    assert [g.dtype for g in got] == [tdt, tdt]
+    for g, wnt in zip(got, want):
+        _grads_close(g, wnt, bf16)
