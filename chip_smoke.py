@@ -27,7 +27,16 @@ Phases, each printing a line with its elapsed seconds:
             the launch counts of all four kernels in one step, two gradient
             evaluations bit for bit, the gradients against the same step
             with the plain versions forced (in bf16, and in float32 on a
-            float32 copy of the model), and ms/step over timed steps.
+            float32 copy of the model), and ms/step over timed steps;
+7. fused    the same forward and train step under ``HPL_RANK_FUSED=1``
+            (the fused rank-mode reduction, ``blocked_rank_reduce``): its
+            launch counts per forward and per step (``rank_reduce`` none),
+            the flow and gradients against the default route bit for bit,
+            ms/pair and ms/step of both routes timed in turns; the
+            environment is restored afterwards;
+8. tools    the op microbench and the two labs
+            (``hplflownet_tpu_torch.tools``) at few reps, and the launch
+            counts of ``row_take`` and ``rank_partial`` in them.
 
 Then one JSON line listing every kernel, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -54,6 +63,11 @@ TRAIN_REF_NPZ = os.path.join("tests", "data", "torch_port_train_ref_n64.npz")
 DEVICE = "cuda"   # a CPU rehearsal of the phases may set "cpu" after import
 TRAIN_WARMUP, TRAIN_REPS = 2, 5
 DIR_SEED = 5      # seeds the directions of the frozen gradient summary
+# the tools phase: reps per op, the microbench's width divisor and sort
+# sizes, and the rank-partial lab's stream sizes (a CPU rehearsal cuts them)
+TOOLS_REPS, TOOLS_WIDTH_DIV = 3, 1
+TOOLS_SORT_SIZES = (131072, 425984, 880000)
+LAB_SIZES = (128000, 102400)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -73,24 +87,10 @@ def sync() -> None:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    if DEVICE != "cuda":                       # CPU rehearsal only
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t) * 1e3 / reps
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events;
+    the host clock in a CPU rehearsal)."""
+    from hplflownet_tpu_torch.tools.timing import time_ms
+    return time_ms(fn, DEVICE, reps, warmup)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -138,15 +138,19 @@ def grad_summary(grads: dict, names) -> tuple:
 TRAIN_TOL = {"": (1e-5, 1e-2, 5e-2), "exact_": (1e-5, 1e-4, 1e-3)}
 
 
-def check_train_reference(ref, loss: float, grads: dict) -> list:
+def check_train_reference(ref, loss: float, grads: dict,
+                          prefixes=tuple(TRAIN_TOL)) -> list:
     """Hold a float32 train step's loss and gradients (tensors) against the
-    frozen JAX summary; raises past TRAIN_TOL.  -> per-leaf error rows."""
+    frozen JAX summary (``prefixes`` of TRAIN_TOL: "" JAX as it is,
+    "exact_" JAX with exact segment sums); raises past TRAIN_TOL.  -> per
+    comparison the worst leaf's errors."""
     import numpy as np
     names = [str(n) for n in ref["names"]]
     norms, dots = grad_summary(
         {k: v.detach().float().cpu().numpy() for k, v in grads.items()}, names)
     rows = []
-    for prefix, (tol_loss, tol_norm, tol_dot) in TRAIN_TOL.items():
+    for prefix in prefixes:
+        tol_loss, tol_norm, tol_dot = TRAIN_TOL[prefix]
         want = float(ref[f"{prefix}loss"])
         if not abs(loss - want) <= tol_loss * abs(want):
             raise AssertionError(f"train loss {loss!r} vs JAX {prefix}{want!r}")
@@ -335,10 +339,213 @@ def phase_kernels(results):
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by})")
+    reduce_rows.extend(_plain_row_cases(scales, randn))
     results["dkernel"] = _dkernel_cases(scales, randn)
     results["tap_tables"] = _tap_tables_cases(scales, randn)
     results["stencil"] = stencil_rows
     results["reduce"] = reduce_rows
+    results["fused"] = _fused_cases(scales, randn)
+    results["take"] = _take_cases(scales, gen)
+    results["partial"] = _partial_cases(gen)
+
+
+def _index_add_ms(sv, ids, n_out, dev) -> float:
+    """Yardstick: one ``index_add_`` of the rows of ``sv`` by ``ids``."""
+    import torch
+    sv, ids = sv.float().contiguous(), ids.long().contiguous()
+    return cuda_ms(lambda: torch.zeros(n_out, sv.shape[1], device=dev)
+                   .index_add_(0, ids, sv))
+
+
+def _plain_row_cases(scales, randn) -> list:
+    """``rank_reduce``'s plain-row mode (R = 0) at the ``gather_rows``
+    adjoint of scale 2: the (15 x H2, 64) cotangent reduced by vertex."""
+    import torch
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
+    from hplflownet_tpu_torch.ops.segment import make_reduce_plan
+    idx = scales[2].pc1_corr_indices
+    h2, c = CAPACITIES[2], 64
+    plan = make_reduce_plan(idx, h2)
+    entries = int((plan.end - plan.start).clamp(min=0).sum())
+    cot32 = randn(idx.numel(), c)
+    rows = []
+    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        g = cot32.to(dt)[plan.perm.long()].contiguous()
+        got = rank_reduce(g, None, plan.start, plan.end, c)
+        again = rank_reduce(g, None, plan.start, plan.end, c)
+        want = rank_reduce_plain(g, None, plan.start, plan.end, c)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"rank_reduce R = 0 {dtn}: rerun differs")
+        err = max_err(got, want, 1e-4, 1e-5, f"rank_reduce R = 0 {dtn}")
+        ms = cuda_ms(lambda: rank_reduce(g, None, plan.start, plan.end, c))
+        plain_ms = cuda_ms(lambda: rank_reduce_plain(
+            g, None, plan.start, plan.end, c), reps=3)
+        keep = plan.ids >= 0
+        lib_ms = _index_add_ms(cot32.to(dt)[keep], plan.ids[keep], h2,
+                               g.device)
+        nbytes = entries * c * g.element_size() + 2 * h2 * 4 + got.numel() * 4
+        bms, by = bound_ms(nbytes, float(entries * c), "float32")
+        row = dict(case="gather_rows adjoint R=0", dtype=dtn,
+                   shape=f"M={g.shape[0]} C={c} R=0 T={h2}", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms)
+        rows.append(row)
+        log(f"rank_reduce gather_rows adjoint (R = 0) {dtn} [{row['shape']}]: "
+            f"max_abs_err {err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def _fused_cases(scales, randn) -> list:
+    """``blocked_rank_reduce`` (kernel 5) at the fused route's shapes: the
+    scale-2 splat with densities, the decoder's slice adjoint, and plain
+    rows (R = 0); each against its plain version and, bit for bit, against
+    ``rank_reduce`` on the same stream."""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_fused import (
+        blocked_rank_reduce, blocked_rank_reduce_plain)
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce
+    from hplflownet_tpu_torch.ops.segment import rank_fused_args
+    rows = []
+    for name, si, n_pts, c, with_w, weighted in (
+            ("scale-2 splat (bcn3)", 2, CAPACITIES[1], 68, True, True),
+            ("bcn1_ slice adjoint", 0, NUM_POINTS, 1024, False, True),
+            ("scale-2 plain rows R=0", 2, CAPACITIES[1], 64, False, False)):
+        sp = scales[si]
+        plan = sp.pc1_splat_plan
+        r = sp.pc1_barycentric.shape[1]
+        perm = plan.perm.long()
+        rid = (perm % r).to(torch.int32)
+        meta, start_rows = rank_fused_args(plan, rid if weighted else None)
+        r_k = r if weighted else 0
+        t = plan.start.shape[0]
+        entries = int((plan.end - plan.start).clamp(min=0).sum())
+        feats32 = randn(n_pts, c)
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            src = feats32.to(dt)
+            if weighted:
+                src = torch.cat([src, sp.pc1_barycentric.to(dt)], 1)
+            g = src[perm // r].contiguous()
+            got = blocked_rank_reduce(g, meta, start_rows, c, r_k, with_w)
+            again = blocked_rank_reduce(g, meta, start_rows, c, r_k, with_w)
+            want = blocked_rank_reduce_plain(g, meta, start_rows, c, r_k, with_w)
+            other = rank_reduce(g, rid if weighted else None, plan.start,
+                                plan.end, c, with_w)
+            sync()
+            if not torch.equal(got, again):
+                raise AssertionError(f"blocked_rank_reduce {name} {dtn}: "
+                                     "rerun differs")
+            if not torch.equal(got[:t], other):
+                raise AssertionError(f"blocked_rank_reduce {name} {dtn}: not "
+                                     "bit-equal to rank_reduce")
+            if bool(got[t:].any()):
+                raise AssertionError(f"blocked_rank_reduce {name}: padding "
+                                     "rows not zero")
+            err = max_err(got, want, 1e-4, 1e-5, f"blocked_rank_reduce {name} {dtn}")
+            ms = cuda_ms(lambda: blocked_rank_reduce(g, meta, start_rows, c,
+                                                     r_k, with_w))
+            plain_ms = cuda_ms(lambda: blocked_rank_reduce_plain(
+                g, meta, start_rows, c, r_k, with_w), reps=3)
+            if weighted:
+                w_sel = torch.gather(g[:, c:], 1, rid.long()[:, None])
+                sv = g[:, :c] * w_sel
+                sv = torch.cat([sv, w_sel], 1) if with_w else sv
+            else:
+                sv = g
+            ids = plan.ids[perm]
+            keep = ids >= 0
+            lib_ms = _index_add_ms(sv[keep], ids[keep], t, g.device)
+            nbytes = (entries * g.shape[1] * g.element_size() + g.shape[0] * 4
+                      + start_rows.numel() * 4 + got.numel() * 4)
+            flops = (2.0 if weighted else 1.0) * entries * got.shape[1]
+            bms, by = bound_ms(nbytes, flops, "float32")
+            row = dict(case=name, dtype=dtn,
+                       shape=f"M={g.shape[0]} C={c} R={r_k} T={t}",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms)
+            rows.append(row)
+            log(f"blocked_rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
+                f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun and rank_reduce "
+                f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def _take_cases(scales, gen) -> list:
+    """``row_take`` (kernel 6) at the gather lab's shape: one tap of scale
+    0's neighbour table over a (H + 1, 128) table."""
+    import torch
+    from hplflownet_tpu_torch.kernels.take import row_take, row_take_plain
+    nb = scales[0].pc1_blur_neighbors
+    h = nb.shape[1]
+    dev = nb.device
+    idx = (nb[3] + 1).contiguous()
+    idx64 = idx.long()
+    rows = []
+    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        table = torch.randn(h + 1, 128, generator=gen, device=dev).to(dt)
+        got = row_take(table, idx)
+        want = row_take_plain(table, idx)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"row_take {dtn}: differs from the plain version")
+        ms = cuda_ms(lambda: row_take(table, idx))
+        plain_ms = cuda_ms(lambda: row_take_plain(table, idx), reps=3)
+        lib_ms = cuda_ms(lambda: table.index_select(0, idx64))
+        nbytes = 2 * h * 128 * table.element_size() + h * 4
+        bms, by = bound_ms(nbytes, 0.0, "float32")
+        row = dict(case="gather lab take", dtype=dtn, shape=f"H={h} C=128",
+                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms)
+        rows.append(row)
+        log(f"row_take {dtn} [{row['shape']}]: equal to index_select; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def _partial_cases(gen) -> list:
+    """``rank_partial`` (kernel 7) on the rank-partial lab's M = 128000
+    stream (bf16, C 68, R 4, densities), float32 and bf16 output."""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_partial import (rank_partial,
+                                                           rank_partial_plain)
+    from hplflownet_tpu_torch.tools.rank_partial_lab import lab_stream
+    m, c, r = LAB_SIZES[0], 68, 4
+    g, meta, _, lane = lab_stream(m, c, r, gen, torch.device(DEVICE))
+    pos = torch.arange(m, device=g.device)
+    key = pos - pos % 128 + (meta & 0xFFFF).long()
+    w_sel = torch.gather(g[:, c:], 1, lane.long()[:, None])
+    sv = torch.cat([g[:, :c] * w_sel, w_sel], 1)
+    rows = []
+    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        got = rank_partial(g, meta, c, r, True, out_dtype=dt)
+        again = rank_partial(g, meta, c, r, True, out_dtype=dt)
+        want = rank_partial_plain(g, meta, c, r, True, out_dtype=dt)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"rank_partial {dtn}-out: rerun differs")
+        # float32 sums of bf16 products in stream order vs float64; a bf16
+        # output may then round one bf16 ulp (2^-8) apart
+        atol, rtol = (1e-4, 1e-5) if dt == torch.float32 else (1e-4, 8e-3)
+        err = max_err(got, want, atol, rtol, f"rank_partial {dtn}-out")
+        ms = cuda_ms(lambda: rank_partial(g, meta, c, r, True, out_dtype=dt))
+        plain_ms = cuda_ms(lambda: rank_partial_plain(g, meta, c, r, True,
+                                                      out_dtype=dt), reps=3)
+        lib_ms = _index_add_ms(sv, key, got.shape[0], g.device)
+        nbytes = g.numel() * g.element_size() + m * 4 + got.numel() * got.element_size()
+        bms, by = bound_ms(nbytes, 2.0 * m * (c + 1), "float32")
+        row = dict(case="M=128000 bo=8", dtype=dtn,
+                   shape=f"M={m} C={c} R={r} out {dtn}", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        rows.append(row)
+        log(f"rank_partial {dtn}-out [{row['shape']}]: max_abs_err {err:.3e} "
+            f"(atol {atol} rtol {rtol}), rerun bit-identical; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    return rows
 
 
 def _dkernel_cases(scales, randn) -> list:
@@ -683,31 +890,174 @@ def phase_train(results):
         f"{TRAIN_WARMUP} warm-up; losses {np.round(losses, 5).tolist()}")
 
 
+def phase_fused(results):
+    """The forward and one train step under HPL_RANK_FUSED=1: launches, the
+    flow and gradients against the default route, ms/pair and ms/step."""
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_fused import blocked_rank_reduce
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.models import HPLFlowNet
+    from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
+    from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
+    from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
+
+    pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in dict(
+        pc1=pc1, pc2=pc2, sf=pc2 - pc1, valid1=np.ones((1, NUM_POINTS), bool),
+        valid2=np.ones((1, NUM_POINTS), bool)).items()}
+    spec = make_lattice_spec(SFM7, CAPACITIES)
+    model = HPLFlowNet(SFM7, compute_dtype="bfloat16", device=DEVICE)
+    params_from_jax(seeded_jax_params(model, 0), model)
+    init, step = make_train_step(model, spec, learning_rate=1e-4,
+                                 on_overflow="skip", device=DEVICE)
+    state = init()
+    wrappers = {"blocked_rank_reduce": blocked_rank_reduce,
+                "rank_reduce": rank_reduce}
+
+    def fwd():
+        return flow_forward(model, spec, pc1[0], pc2[0], adjoint_plans=False)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        sync()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    def fused(on: bool):
+        if on:
+            os.environ["HPL_RANK_FUSED"] = "1"
+        else:
+            os.environ.pop("HPL_RANK_FUSED", None)
+
+    saved = os.environ.get("HPL_RANK_FUSED")
+    ms = {"pair": {False: [], True: []}, "step": {False: [], True: []}}
+    try:
+        fused(False)
+        flow0, default_fwd = counted(fwd)
+        _, _, g0 = loss_and_grad(model, spec, state.params, batch)
+        fused(True)
+        flow1, fused_fwd = counted(fwd)
+        (new_state, loss, overflow), fused_step = counted(
+            lambda: step.with_overflow(state, batch))
+        _, _, g1 = loss_and_grad(model, spec, state.params, batch)
+        sync()
+        st = [new_state]
+
+        def one():
+            st[0], _ = step(st[0], batch)
+        # the two routes in turns (default, fused, fused, default): host
+        # times spread between calls and over a call
+        for on in (False, True, True, False):
+            fused(on)
+            ms["pair"][on].append(cuda_ms(fwd, reps=5, warmup=1))
+            ms["step"][on].append(cuda_ms(one, reps=TRAIN_REPS, warmup=1))
+    finally:
+        if saved is None:
+            os.environ.pop("HPL_RANK_FUSED", None)
+        else:
+            os.environ["HPL_RANK_FUSED"] = saved
+    log(f"launches: default forward {default_fwd}; fused forward {fused_fwd}; "
+        f"fused train step {fused_step}")
+    if DEVICE == "cuda":                        # a CPU rehearsal launches nothing
+        if default_fwd["blocked_rank_reduce"] or not default_fwd["rank_reduce"]:
+            raise AssertionError(f"default route launches {default_fwd}")
+        for what, n in (("forward", fused_fwd), ("train step", fused_step)):
+            if n["rank_reduce"] or n["blocked_rank_reduce"] <= 0:
+                raise AssertionError(f"fused {what} launches {n}")
+    if int(overflow) != 0 or not torch.isfinite(loss):
+        raise AssertionError(f"fused train step: overflow {int(overflow)}, "
+                             f"loss {float(loss)}")
+    # both routes sum every run in stream order: the same bits
+    if not torch.equal(flow0, flow1):
+        err = float((flow0.float() - flow1.float()).abs().max())
+        raise AssertionError(f"fused flow differs from the default: {err:.3e}")
+    differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    if differ:
+        raise AssertionError(f"fused gradients differ from the default: {differ[:5]}")
+    results["fused_launches"] = fused_step
+    results["fused_forward_launches"] = fused_fwd
+    results["fused_ms"] = {k: {"fused" if on else "default": v[on]
+                               for on in (False, True)} for k, v in ms.items()}
+    log(f"fused route: flow and all {len(g0)} gradient leaves bit-identical "
+        f"to the default route; in turns default/fused/fused/default: "
+        + "; ".join(f"ms/{k} default {np.round(v[False], 2).tolist()}, fused "
+                    f"{np.round(v[True], 2).tolist()}" for k, v in ms.items())
+        + f"; HPL_RANK_FUSED restored to {os.environ.get('HPL_RANK_FUSED')!r}")
+
+
+def phase_tools(results):
+    """The op microbench and both labs at few reps: row_take and
+    rank_partial must launch there."""
+    from hplflownet_tpu_torch.kernels.rank_partial import rank_partial
+    from hplflownet_tpu_torch.kernels.take import row_take
+    from hplflownet_tpu_torch.tools import gather_lab, microbench, rank_partial_lab
+    for w in (row_take, rank_partial):
+        w.launches = 0
+    mb = microbench.run(DEVICE, NUM_POINTS, CAPACITIES, reps=TOOLS_REPS,
+                        warmup=1, width_div=TOOLS_WIDTH_DIV,
+                        sort_sizes=TOOLS_SORT_SIZES)
+    gl = gather_lab.run(DEVICE, NUM_POINTS, CAPACITIES, reps=TOOLS_REPS, warmup=1)
+    rp = rank_partial_lab.run(DEVICE, LAB_SIZES, reps=TOOLS_REPS, warmup=1)
+    sync()
+    launches = {"row_take": row_take.launches,
+                "rank_partial": rank_partial.launches}
+    log(f"tools launches: {launches}")
+    if DEVICE == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"a tools kernel was not launched: {launches}")
+    for tool in (mb, gl, rp):
+        bad = [k for k, v in tool["ms"].items() if not v > 0]
+        if bad:
+            raise AssertionError(f"{tool['tool']}: no time for {bad}")
+    results["tools_launches"] = launches
+    results["tools"] = dict(microbench=mb, gather_lab=gl, rank_partial_lab=rp)
+    for tool in (mb, gl, rp):
+        log(f"{tool['tool']} ({tool['clock']}): " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in tool["ms"].items()))
+
+
 def kernels_line(results) -> dict:
     """The contract line: one entry per kernel, at its widest bf16 case."""
     def pick(kind, case):
         return [r for r in results[kind]
                 if r["case"].startswith(case) and r["dtype"] == "bfloat16"][0]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    fwd = results.get("forward_launches", {})
+    stencil = "hplflownet_tpu/ops/pallas_stencil.py"
+    train, fwd = results["launches"], results.get("forward_launches", {})
+    fused = results.get("fused_launches", {})
+    fused_fwd = results.get("fused_forward_launches", {})
+    tools = results.get("tools_launches", {})
+    # name, result kind, case, replaced TPU kernel, launches (path's run),
+    # launches on the forward where there is one
     entries = [
-        ("stencil_gather_matmul", "stencil", "bcn1_ decoder blur", 270),
-        ("rank_reduce", "reduce", "scale-2", 735),
-        ("stencil_dkernel", "dkernel", "bcn1_ blur dW", 340),
-        ("stencil_tap_tables_sum", "tap_tables", "corr1", 461),
+        ("stencil_gather_matmul", "stencil", "bcn1_ decoder blur",
+         f"{stencil}:270", train, fwd),
+        ("rank_reduce", "reduce", "scale-2", f"{stencil}:735", train, fwd),
+        ("stencil_dkernel", "dkernel", "bcn1_ blur dW", f"{stencil}:340",
+         train, fwd),
+        ("stencil_tap_tables_sum", "tap_tables", "corr1", f"{stencil}:461",
+         train, fwd),
+        ("blocked_rank_reduce", "fused", "scale-2 splat", f"{stencil}:648",
+         fused, fused_fwd),
+        ("row_take", "take", "gather lab", "tools/gather_experiments.py:76",
+         tools, {}),
+        ("rank_partial", "partial", "M=128000", "tools/rank_partial_lab.py:110",
+         tools, {}),
     ]
     out = []
-    for name, kind, case, line in entries:
+    for name, kind, case, replaces, launches, launches_fwd in entries:
         row = pick(kind, case)
         out.append(dict(
             name=name, route="cuda",
             source=f"hplflownet_tpu_torch/csrc/{name}.cu",
-            replaces=f"hplflownet_tpu/ops/pallas_stencil.py:{line}",
-            launches=results["launches"][name],
+            replaces=replaces, launches=launches[name],
             **{k: row[k] for k in keys},
             shape=row["shape"] + " bf16",
             max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
-            **({"launches_forward": fwd[name]} if name in fwd else {})))
+            **({"launches_forward": launches_fwd[name]}
+               if name in launches_fwd else {})))
     return {"kernels": out}
 
 
@@ -739,7 +1089,9 @@ def main() -> int:
               ("kernels", lambda: phase_kernels(results)),
               ("reference", phase_reference),
               ("main path", lambda: phase_main_path(results)),
-              ("train", lambda: phase_train(results))]
+              ("train", lambda: phase_train(results)),
+              ("fused", lambda: phase_fused(results)),
+              ("tools", lambda: phase_tools(results))]
     outputs = {}
     for i, (name, fn) in enumerate(phases, 1):
         t = time.perf_counter()

@@ -4,6 +4,10 @@
 //   out[t, C] = sum_{j in [start[t], end[t])} w_j                    (density)
 //   with w_j = g[j, C + rid[j]]
 //
+// or, with R = 0 (plain rows: g is (M, C), no weight lanes, no density),
+//
+//   out[t, c] = sum_{j in [start[t], end[t])} g[j, c]
+//
 // g is the (M, C + R) stream of point rows with their R barycentric weights,
 // already gathered in the splat plan's sorted order, so every vertex's
 // entries form one contiguous run [start[t], end[t]).  In bf16 mode each
@@ -53,7 +57,7 @@ __device__ __forceinline__ float product(bf16 a, bf16 w) {
   return __bfloat162float(__float2bfloat16_rn(__fmul_rn(to_f32(a), to_f32(w))));
 }
 
-template <typename T>
+template <typename T, bool WEIGHTED>
 __global__ void __launch_bounds__(THREADS)
 rank_reduce_kernel(const T* __restrict__ g, int cr, int c,
                    const int* __restrict__ rid, const int* __restrict__ start,
@@ -74,16 +78,24 @@ rank_reduce_kernel(const T* __restrict__ g, int cr, int c,
     for (int q = 0; q < NACC; ++q) acc[q] = 0.f;
     for (int j = s; j < e; ++j) {
       const T* row = g + (size_t)j * cr;
-      const int k = rid[j];
-      if (k < 0 || k >= r) continue;     // the wrapper guarantees 0 <= rid < R
-      const T w = row[c + k];
+      if (WEIGHTED) {
+        const int k = rid[j];
+        if (k < 0 || k >= r) continue;   // the wrapper guarantees 0 <= rid < R
+        const T w = row[c + k];
 #pragma unroll
-      for (int q = 0; q < NACC; ++q) {
-        const int ch = c0 + lane + 32 * q;
-        if (ch < c)
-          acc[q] = __fadd_rn(acc[q], product(row[ch], w));
-        else if (ch == c && with_weights)
-          acc[q] = __fadd_rn(acc[q], to_f32(w));
+        for (int q = 0; q < NACC; ++q) {
+          const int ch = c0 + lane + 32 * q;
+          if (ch < c)
+            acc[q] = __fadd_rn(acc[q], product(row[ch], w));
+          else if (ch == c && with_weights)
+            acc[q] = __fadd_rn(acc[q], to_f32(w));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < NACC; ++q) {
+          const int ch = c0 + lane + 32 * q;
+          if (ch < c) acc[q] = __fadd_rn(acc[q], to_f32(row[ch]));
+        }
       }
     }
 #pragma unroll
@@ -98,25 +110,37 @@ rank_reduce_kernel(const T* __restrict__ g, int cr, int c,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  g: (m, cr) row-major; rid: (m,) int32;
-// start, end: (t,) int32; out: (t, c + with_weights) float32.  Returns the
-// CUDA error code of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  g: (m, cr) row-major; rid: (m,) int32
+// (unread, and may be null, when cr == c: the plain-row mode, which takes no
+// density); start, end: (t,) int32; out: (t, c + with_weights) float32.
+// Returns the CUDA error code of the launch (0 on success).
 int hpl_rank_reduce(const void* g, int m, int cr, int c, const void* rid,
                     const void* start, const void* end, int t,
                     int with_weights, void* out, int dtype, void* stream) {
   if (t <= 0) return 0;
+  const bool weighted = cr > c;
+  if (c <= 0 || cr < c || (!weighted && with_weights))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (t + THREADS / 32 - 1) / (THREADS / 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ridp = static_cast<const int*>(rid);
   const int* sp = static_cast<const int*>(start);
   const int* ep = static_cast<const int*>(end);
   float* op = static_cast<float*>(out);
-  if (dtype == 1)
-    rank_reduce_kernel<bf16><<<blocks, THREADS, 0, s>>>(
-        static_cast<const bf16*>(g), cr, c, ridp, sp, ep, t, m, with_weights, op);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* gf = static_cast<const float*>(g);
+  if (dtype == 1 && weighted)
+    rank_reduce_kernel<bf16, true><<<blocks, THREADS, 0, s>>>(
+        gb, cr, c, ridp, sp, ep, t, m, with_weights, op);
+  else if (dtype == 1)
+    rank_reduce_kernel<bf16, false><<<blocks, THREADS, 0, s>>>(
+        gb, cr, c, ridp, sp, ep, t, m, 0, op);
+  else if (dtype == 0 && weighted)
+    rank_reduce_kernel<float, true><<<blocks, THREADS, 0, s>>>(
+        gf, cr, c, ridp, sp, ep, t, m, with_weights, op);
   else if (dtype == 0)
-    rank_reduce_kernel<float><<<blocks, THREADS, 0, s>>>(
-        static_cast<const float*>(g), cr, c, ridp, sp, ep, t, m, with_weights, op);
+    rank_reduce_kernel<float, false><<<blocks, THREADS, 0, s>>>(
+        gf, cr, c, ridp, sp, ep, t, m, 0, op);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

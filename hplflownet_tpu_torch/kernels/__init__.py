@@ -9,7 +9,13 @@ Every kernel replaces one Pallas TPU kernel of ``hplflownet_tpu``:
 * ``dkernel.stencil_dkernel`` (csrc/stencil_dkernel.cu) replaces
   ``stencil_dkernel``, the stencil's weight gradient;
 * ``tap_tables.stencil_tap_tables_sum`` (csrc/stencil_tap_tables_sum.cu)
-  replaces ``stencil_tap_tables_sum``, the correlation adjoint's gather-sum.
+  replaces ``stencil_tap_tables_sum``, the correlation adjoint's gather-sum;
+* ``rank_fused.blocked_rank_reduce`` (csrc/blocked_rank_reduce.cu) replaces
+  ``blocked_rank_reduce``, the fused rank-mode reduction (``HPL_RANK_FUSED=1``);
+* ``take.row_take`` (csrc/row_take.cu) replaces the gather lab's
+  ``pallas_take`` (``tools/gather_experiments.py``);
+* ``rank_partial.rank_partial`` (csrc/rank_partial.cu) replaces the
+  rank-partial lab's ``variant`` (``tools/rank_partial_lab.py``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never falls back.  The one exception is

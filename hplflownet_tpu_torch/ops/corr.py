@@ -35,19 +35,46 @@ from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.tap_tables import stencil_tap_tables_sum
 from .bcl import _negation_index, activation, dense, splat
-from .segment import ReducePlan
+from .segment import ReducePlan, apply_reduce_plan
 
 __all__ = ["gather_rows", "corr_self", "corr_cross", "fold_cross_kernel",
            "BilateralCorrelation"]
 
 
-def gather_rows(table_pad: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` of the JAX package (corr.py:46-68): the adjoint is a
+    segment reduction of the cotangent through the plan, not a scatter."""
+
+    @staticmethod
+    def forward(ctx, table_pad, indices, plan):
+        ctx.plain_kernels = plain_forced()
+        ctx.plan = plan
+        ctx.table_dtype = table_pad.dtype
+        return table_pad[(indices + 1).long()]
+
+    @staticmethod
+    @backward_like_forward
+    def backward(ctx, g):
+        if ctx.plan is None:
+            raise ValueError("gather_rows' gradient needs the plan over its "
+                             "indices")
+        c = g.shape[-1]
+        d_rows = apply_reduce_plan(ctx.plan, g.reshape(-1, c))   # (T, C)
+        d_table = torch.cat([d_rows.new_zeros(1, c), d_rows])
+        return d_table.to(ctx.table_dtype), None, None
+
+
+def gather_rows(table_pad: torch.Tensor,        # (T + 1, C), row 0 zero
+                indices: torch.Tensor,          # (...,) int32, -1 absent
+                plan: ReducePlan | None = None  # over indices.reshape(-1)
+                ) -> torch.Tensor:
     """``table_pad[indices + 1]``: row 0 is the zero row for absent ids.
 
-    Forward only: the model does not call it, and its plan-based adjoint
-    (JAX ``apply_reduce_plan``) is not ported yet.
+    The gradient of ``table_pad`` reduces the cotangent through ``plan``
+    (``segment.make_reduce_plan(indices, T)``) with ``apply_reduce_plan``;
+    the forward does not read the plan.  The model does not call this op.
     """
-    return table_pad[(indices + 1).long()]
+    return _GatherRows.apply(table_pad, indices, plan)
 
 
 class _CorrSelf(torch.autograd.Function):

@@ -27,19 +27,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
 
-SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
-        [0.5, 1, 1, 1], [0.25, 1, 1, 1], [0.125, 1, 1, 1],
-        [0.0625, 1, 1, 1]]
-CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
+from .tools.timing import CAPACITIES, SFM7, card_line, time_ms
 
 _GROUPS = (("stencil_gather_matmul", ("stencil_bf16_kernel", "stencil_f32_kernel")),
            ("stencil_dkernel", ("dkernel_bf16", "dkernel_f32", "sum_slabs")),
            ("stencil_tap_tables_sum", ("tap_tables_kernel",)),
+           ("blocked_rank_reduce", ("blocked_rank_reduce_kernel",)),
            ("rank_reduce", ("rank_reduce_kernel",)),
            ("adam (foreach)", ("multi_tensor_apply", "foreach")),
            ("dense matmul", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
@@ -53,29 +50,6 @@ def _group(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return group
     return "other"
-
-
-def _card_line() -> str:
-    """The card's name and power limit as nvidia-smi reports them."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired):
-        return "nvidia-smi not available"
-
-
-def _cuda_ms(fn, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _trace(fn, n_prof: int):
@@ -150,7 +124,7 @@ def main(argv=None) -> dict:
     params_from_jax(seeded_jax_params(model, args.seed), model)
     t1 = torch.from_numpy(pc1[0]).to(dev)
     t2 = torch.from_numpy(pc2[0]).to(dev)
-    result = dict(device=torch.cuda.get_device_name(0), card=_card_line(),
+    result = dict(device=torch.cuda.get_device_name(0), card=card_line(),
                   dtype=args.dtype, points=args.points)
     print(f"device: {result['device']} ({result['card']})")
 
@@ -165,9 +139,7 @@ def main(argv=None) -> dict:
         def one():
             state[0], _ = step(state[0], batch)
 
-        for _ in range(2):
-            one()
-        result["train_ms"] = _cuda_ms(one, args.reps)
+        result["train_ms"] = time_ms(one, dev, args.reps, warmup=2)
         print(f"train step {result['train_ms']:.3f} ms/step "
               f"({1e3 / result['train_ms']:.2f} train pairs/s; CUDA events, "
               f"{args.reps} reps, {args.dtype})")
@@ -182,13 +154,12 @@ def main(argv=None) -> dict:
             with torch.inference_mode():
                 return build_pyramid(spec, t1, t2, adjoint_plans=False)
 
-        for _ in range(2):
-            fwd()
+        result["forward_ms"] = time_ms(fwd, dev, args.reps, warmup=2)
         scales = build()
-        result["forward_ms"] = _cuda_ms(fwd, args.reps)
-        result["build_ms"] = _cuda_ms(build, args.reps)
+        result["build_ms"] = time_ms(build, dev, args.reps, warmup=0)
         with torch.inference_mode():
-            result["model_ms"] = _cuda_ms(lambda: model(t1, t2, scales), args.reps)
+            result["model_ms"] = time_ms(lambda: model(t1, t2, scales), dev,
+                                         args.reps, warmup=0)
         print(f"forward {result['forward_ms']:.3f} ms/pair "
               f"({1e3 / result['forward_ms']:.2f} pairs/s); lattice build "
               f"{result['build_ms']:.3f} ms, model {result['model_ms']:.3f} ms "

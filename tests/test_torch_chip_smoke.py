@@ -2,9 +2,9 @@
 
 On the CPU every kernel wrapper runs its plain version, so the comparisons
 are trivially equal; what this checks is the script itself: shapes, tables,
-tolerances, the frozen-reference phase (forward and train step), the train
-phase and the contract keys of the kernels line, so that a chip run does
-not fail on a Python error.
+tolerances, the frozen-reference phase (forward and train step), the train,
+fused-route and tools phases and the contract keys of the kernels line, so
+that a chip run does not fail on a Python error.
 """
 
 import json
@@ -16,7 +16,9 @@ import chip_smoke
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 KERNELS = ["stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
-           "stencil_tap_tables_sum"]
+           "stencil_tap_tables_sum", "blocked_rank_reduce", "row_take",
+           "rank_partial"]
+TRAIN_KERNELS = KERNELS[:4]
 
 
 @pytest.fixture
@@ -27,6 +29,10 @@ def small_cpu_smoke(monkeypatch):
                         [1024, 2048, 2048, 1024, 512, 256, 128])
     monkeypatch.setattr(chip_smoke, "TRAIN_WARMUP", 1)
     monkeypatch.setattr(chip_smoke, "TRAIN_REPS", 1)
+    monkeypatch.setattr(chip_smoke, "TOOLS_REPS", 1)
+    monkeypatch.setattr(chip_smoke, "TOOLS_WIDTH_DIV", 8)
+    monkeypatch.setattr(chip_smoke, "TOOLS_SORT_SIZES", (4096,))
+    monkeypatch.setattr(chip_smoke, "LAB_SIZES", (1280,))
     return chip_smoke
 
 
@@ -34,11 +40,17 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     cs = small_cpu_smoke
     results = {}
     cs.phase_kernels(results)
-    assert len(results["stencil"]) == 10 and len(results["reduce"]) == 6
+    assert len(results["stencil"]) == 10 and len(results["reduce"]) == 8
     assert len(results["dkernel"]) == 6 and len(results["tap_tables"]) == 2
+    assert len(results["fused"]) == 6 and len(results["take"]) == 2
+    assert len(results["partial"]) == 2
     cs.phase_reference()
-    results["launches"] = dict(zip(KERNELS, (57, 25, 31, 5)))
+    results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)))
     results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
+    results["fused_launches"] = {"blocked_rank_reduce": 25, "rank_reduce": 0}
+    results["fused_forward_launches"] = {"blocked_rank_reduce": 18,
+                                         "rank_reduce": 0}
+    results["tools_launches"] = {"row_take": 5, "rank_partial": 52}
     line = json.loads(json.dumps(cs.kernels_line(results)))
     assert [k["name"] for k in line["kernels"]] == KERNELS
     for k in line["kernels"]:
@@ -52,5 +64,24 @@ def test_train_phase_runs_and_launches_nothing_on_the_cpu(small_cpu_smoke):
     their plain versions, so every launch count stays 0."""
     results = {}
     small_cpu_smoke.phase_train(results)
-    assert results["launches"] == dict.fromkeys(KERNELS, 0)
+    assert results["launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
     assert results["train_ms"] > 0
+
+
+def test_fused_and_tools_phases_run_on_the_cpu(small_cpu_smoke, monkeypatch):
+    """The fused-route phase restores HPL_RANK_FUSED; the tools phase runs
+    the microbench and both labs."""
+    import os
+    monkeypatch.setenv("HPL_RANK_FUSED", "0")
+    results = {}
+    small_cpu_smoke.phase_fused(results)
+    assert os.environ["HPL_RANK_FUSED"] == "0"
+    assert results["fused_launches"] == {"blocked_rank_reduce": 0,
+                                         "rank_reduce": 0}
+    assert {k: {r: len(t) for r, t in v.items()}
+            for k, v in results["fused_ms"].items()} == {
+        "pair": {"default": 2, "fused": 2}, "step": {"default": 2, "fused": 2}}
+    small_cpu_smoke.phase_tools(results)
+    assert results["tools_launches"] == {"row_take": 0, "rank_partial": 0}
+    assert [t["tool"] for t in results["tools"].values()] == [
+        "microbench", "gather_lab", "rank_partial_lab"]

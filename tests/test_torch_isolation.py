@@ -3,9 +3,12 @@
 The card's machine has no jax, flax or optax, and importing any module of
 hplflownet_tpu loads them.  A subprocess installs a ``sys.meta_path``
 finder that refuses those packages, then imports every module of
-hplflownet_tpu_torch and chip_smoke.py (module import only).
+hplflownet_tpu_torch and chip_smoke.py (module import only).  A static
+pass over the sources finds no import statement of those packages either,
+in the tools subpackage or anywhere else in the port.
 """
 
+import ast
 import os
 import shutil
 import subprocess
@@ -48,11 +51,35 @@ def test_port_and_chip_smoke_import_without_jax():
     r = _run(["-c", _REFUSING_IMPORTS], ROOT)
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[1])
-    # every subpackage and module was walked, the training slice's too
-    assert n >= 27, r.stdout
+    # every subpackage and module was walked, the later slices' too
+    assert n >= 36, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
-                "kernels.dkernel", "kernels.tap_tables"):
-        assert f"hplflownet_tpu_torch.{mod}" in r.stdout, mod
+                "kernels.dkernel", "kernels.tap_tables", "kernels.rank_fused",
+                "kernels.take", "kernels.rank_partial", "ops.dispatch",
+                "tools", "tools.timing", "tools.microbench", "tools.gather_lab",
+                "tools.rank_partial_lab"):
+        assert f"hplflownet_tpu_torch.{mod}" in r.stdout.split(), mod
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    blocked = ("jax", "jaxlib", "flax", "optax", "hplflownet_tpu")
+    pkg = os.path.join(ROOT, "hplflownet_tpu_torch")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+               if "_build" not in os.path.relpath(d, pkg).split(os.sep)
+               for f in fs if f.endswith(".py")]
+    assert any(os.sep + "tools" + os.sep in p for p in sources)
+    for path in sources + [os.path.join(ROOT, "chip_smoke.py")]:
+        with open(path) as fd:
+            tree = ast.parse(fd.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in blocked, (path, m)
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

@@ -3,8 +3,10 @@
 On the CPU each wrapper runs its plain PyTorch version; here those are held
 against the Pallas kernels run in interpret mode, on the inputs of the
 JAX suite's own cases (tests/test_pallas_stencil.py), in float32: the
-forward stencil, the splat reduction, the stencil's weight gradient
-(``stencil_dkernel``) and the per-tap-table gather-sum.  A
+forward stencil, the splat reduction (and its plain-row mode), the
+stencil's weight gradient (``stencil_dkernel``), the per-tap-table
+gather-sum, the fused rank-mode reduction (``blocked_rank_reduce``) and the
+block partial sums (``rank_partial``); the row take against numpy.  A
 ``cuda``-marked test holds the CUDA kernels against the plain versions on a
 card and skips without one.
 """
@@ -19,9 +21,16 @@ from hplflownet_tpu.ops.pallas_stencil import (blocked_rank_partial,
                                                stencil_dkernel as pallas_dkernel,
                                                stencil_gather_matmul as pallas_stencil,
                                                stencil_tap_tables_sum as pallas_tts)
-from hplflownet_tpu.ops.segment import ReducePlan, _combine, local_ranks
-from hplflownet_tpu_torch.kernels import (dkernel, plain_kernels, splat, stencil,
-                                          tap_tables)
+from hplflownet_tpu.ops.segment import (ReducePlan, _combine, _wr_rank_fused,
+                                        local_ranks)
+from hplflownet_tpu_torch.kernels import (dkernel, plain_kernels, rank_fused,
+                                          rank_partial as rank_partial_mod,
+                                          splat, stencil, take, tap_tables)
+from hplflownet_tpu_torch.kernels.rank_fused import (blocked_rank_reduce,
+                                                     blocked_rank_reduce_plain)
+from hplflownet_tpu_torch.kernels.rank_partial import (rank_partial,
+                                                       rank_partial_plain)
+from hplflownet_tpu_torch.kernels.take import row_take, row_take_plain
 from hplflownet_tpu_torch.kernels.dkernel import (stencil_dkernel,
                                                   stencil_dkernel_plain,
                                                   vertex_splits)
@@ -186,7 +195,8 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
     rng = np.random.RandomState(1)
     table, nb, kern = (torch.from_numpy(a) for a in _mk(rng, 50, 15, 8, 4, 5))
     wrappers = (stencil_gather_matmul, rank_reduce, stencil_dkernel,
-                stencil_tap_tables_sum)
+                stencil_tap_tables_sum, blocked_rank_reduce, row_take,
+                rank_partial)
     before = [w.launches for w in wrappers]
     out = stencil_gather_matmul(table, nb, kern)
     torch.testing.assert_close(out, stencil_gather_matmul_plain(table, nb, kern))
@@ -200,6 +210,14 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
     tabs = torch.randn(50, 15 * 3)
     torch.testing.assert_close(stencil_tap_tables_sum(tabs, 3, nb),
                                stencil_tap_tables_sum_plain(tabs, 3, nb))
+    meta = torch.arange(20, dtype=torch.int32) << 2
+    rows = torch.zeros(1, dtype=torch.int32)
+    torch.testing.assert_close(blocked_rank_reduce(g, meta, rows, 5, 1),
+                               blocked_rank_reduce_plain(g, meta, rows, 5, 1))
+    idx = torch.tensor([3, 0, 49], dtype=torch.int32)
+    torch.testing.assert_close(row_take(table, idx), row_take_plain(table, idx))
+    torch.testing.assert_close(rank_partial(g, meta >> 2, 5, 1),
+                               rank_partial_plain(g, meta >> 2, 5, 1))
     with plain_kernels():
         stencil_gather_matmul(table, nb, kern)
     assert [w.launches for w in wrappers] == before
@@ -266,6 +284,37 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
         dkernel._check_args(t, nb, torch.zeros(4, 2))
     with pytest.raises(ValueError):
         dkernel._check_args(t, nb, torch.zeros(2, 5).t())
+    splat._check_args(g[:, :4].contiguous(), None, se, se, 4)
+    with pytest.raises(ValueError):               # plain rows take no density
+        splat._check_args(g[:, :4].contiguous(), None, se, se, 4, True)
+    meta = torch.zeros(8, dtype=torch.int32)
+    rows = torch.zeros(2, dtype=torch.int32)
+    rank_fused._check_args(g, meta, rows, 4, 2, True)
+    rank_fused._check_args(g, meta, rows, 6, 0, False)
+    with pytest.raises(ValueError):
+        rank_fused._check_args(g, meta, rows, 4, 1, False)    # C + R != 6
+    with pytest.raises(ValueError):
+        rank_fused._check_args(g, meta, rows, 6, 0, True)
+    with pytest.raises(ValueError):
+        rank_fused._check_args(torch.zeros(8, 10), meta, rows, 5, 5, False)
+    with pytest.raises(TypeError):
+        rank_fused._check_args(g, meta.long(), rows, 4, 2, False)
+    with pytest.raises(ValueError):
+        rank_fused._check_args(g, meta[:4], rows, 4, 2, False)
+    take._check_args(t, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        take._check_args(t, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        take._check_args(t.double(), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        take._check_args(t.t(), torch.zeros(3, dtype=torch.int32))
+    rank_partial_mod._check_args(g, meta, 4, 2, True, 8, torch.bfloat16)
+    with pytest.raises(ValueError):
+        rank_partial_mod._check_args(g, meta, 4, 2, True, 0, torch.float32)
+    with pytest.raises(TypeError):
+        rank_partial_mod._check_args(g, meta, 4, 2, True, 8, torch.float16)
+    with pytest.raises(ValueError):
+        rank_partial_mod._check_args(g, meta, 6, 0, True, 8, torch.float32)
     tabs = torch.zeros(10, 3 * 4)
     tap_tables._check_args(tabs, 4, nb)
     with pytest.raises(ValueError):
@@ -274,6 +323,186 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
         tap_tables._check_args(tabs.double(), 4, nb)
     with pytest.raises(TypeError):
         tap_tables._check_args(tabs, 4, nb.long())
+
+
+def _mk_rank_plan(rng, t, m_real, m):
+    """tests/test_pallas_stencil.py::_mk_rank_plan: dense ranks with random
+    run lengths over the first ``m_real`` entries, a sentinel tail."""
+    ranks, cur = [], 0
+    while len(ranks) < m_real and cur < t:
+        ln = int(rng.randint(1, 7))
+        ranks.extend([cur] * min(ln, m_real - len(ranks)))
+        cur += 1
+    nuniq = ranks[-1] + 1
+    ranks = np.asarray(ranks + [nuniq - 1] * (m - len(ranks)), np.int32)
+    valid = np.arange(m) < m_real
+    same = np.concatenate([[False], ranks[1:] == ranks[:-1]])
+    if m > m_real:
+        same[m_real] = False
+        same[m_real + 1:] = True
+    lrank = np.asarray(local_ranks(jnp.asarray(same)))
+    start = np.searchsorted(ranks[:m_real], np.arange(t)).astype(np.int32)
+    end = np.searchsorted(ranks[:m_real], np.arange(t), "right").astype(np.int32)
+    dead = np.arange(t) >= nuniq
+    start = np.where(dead, m_real, start).astype(np.int32)
+    end = np.where(dead, m_real, end).astype(np.int32)
+    plan = ReducePlan(ids=jnp.asarray(np.where(valid, ranks, -1)),
+                      perm=jnp.arange(m, dtype=jnp.int32),
+                      start=jnp.asarray(start), end=jnp.asarray(end),
+                      lrank=jnp.asarray(lrank), r0=jnp.asarray(ranks[::128]))
+    return plan, ranks, valid
+
+
+def _fused_args_jax_way(plan, rid, r):
+    """The kernel's inputs as JAX's ``_wr_rank_fused`` builds them: global
+    rank ``r0[j // 128] + lrank[j]``, ``start_rows = start[::128]`` padded
+    with M."""
+    m, t = np.asarray(plan.lrank).shape[0], np.asarray(plan.start).shape[0]
+    grank = np.repeat(np.asarray(plan.r0), 128)[:m] + np.asarray(plan.lrank)
+    meta = ((grank << 2) | rid) if r else grank
+    tp = -(-t // 128) * 128
+    start = np.concatenate([np.asarray(plan.start), np.full(tp - t, m)])
+    return (torch.from_numpy(meta.astype(np.int32)),
+            torch.from_numpy(start[::128].astype(np.int32)))
+
+
+@pytest.mark.parametrize("mode", ["weights", "densities", "plain_rows"])
+def test_blocked_rank_reduce_plain_matches_pallas_interpret(mode):
+    """tests/test_pallas_stencil.py:259's case (R = 4 without and with
+    densities, and R = 0) through ``_wr_rank_fused`` in interpret mode ==
+    the port's plain version on the same stream, meta and start rows.
+    (:292, the TPU window's counted degrade, has no counterpart here.)"""
+    rng = np.random.RandomState(11)
+    t, m_real, m, c, r = 640, 1500, 1600, 20, 4
+    plan, _, valid = _mk_rank_plan(rng, t, m_real, m)
+    g = rng.randn(m, c + r).astype(np.float32)
+    g[~valid] = 0.0                       # JAX's rank-mode zero contract
+    rid = rng.randint(0, r, m).astype(np.int32)
+    if mode == "plain_rows":
+        c, r, with_w = c + r, 0, False
+    else:
+        with_w = mode == "densities"
+    want = np.asarray(jax.jit(lambda gg, rr: _wr_rank_fused(
+        plan, gg, rr, c, r, with_w, interpret=True))(g, rid))
+    meta, start_rows = _fused_args_jax_way(plan, rid, r)
+    got = blocked_rank_reduce(torch.from_numpy(g), meta, start_rows, c, r,
+                              with_w)
+    assert got.shape == (start_rows.shape[0] * 128, c + int(with_w))
+    np.testing.assert_allclose(got[:t].numpy(), want, atol=1e-4)
+    assert not got[t:].any()
+
+
+def test_blocked_rank_reduce_plain_matches_pallas_on_builder_plans():
+    """tests/test_pallas_stencil.py:362's case: the fused kernel on the
+    builder's real splat plans (the port's pyramid, table-identical to
+    JAX's), in interpret mode and in the port's plain version."""
+    from hplflownet_tpu_torch.lattice import LatticeSpec, ScaleSpec, build_pyramid
+    rng = np.random.RandomState(7)
+    n, c = 256, 12
+    pc1 = rng.randn(n, 3).astype(np.float32) * 3.0
+    pc2 = pc1 + 0.1 * rng.randn(n, 3).astype(np.float32)
+    spec = LatticeSpec(d=3, scales=(ScaleSpec(1.0, 1, 1, 1, capacity=1024),
+                                    ScaleSpec(0.5, 1, 1, 1, capacity=1024)))
+    scales = build_pyramid(spec, torch.from_numpy(pc1), torch.from_numpy(pc2))
+    for i, (plan, bary) in enumerate(
+            (p, b) for sp in scales for p, b in (
+                (sp.pc1_splat_plan, sp.pc1_barycentric),
+                (sp.pc2_splat_plan, sp.pc2_barycentric))):
+        with_w = i % 2 == 1
+        jplan = ReducePlan(*[jnp.asarray(x.numpy()) for x in plan])
+        weights = bary.numpy()
+        r = weights.shape[1]
+        rows = rng.randn(weights.shape[0], c).astype(np.float32)
+        perm = plan.perm.numpy()
+        rid = (perm % r).astype(np.int32)
+        g = np.concatenate([rows, weights], axis=1)[perm // r]
+        want = np.asarray(jax.jit(lambda gg, rr: _wr_rank_fused(
+            jplan, gg, rr, c, r, with_w, interpret=True))(g, rid))
+        meta, start_rows = _fused_args_jax_way(jplan, rid, r)
+        got = blocked_rank_reduce(torch.from_numpy(g), meta, start_rows, c, r,
+                                  with_w)[:want.shape[0]]
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+
+
+def test_blocked_rank_reduce_ignores_entries_outside_their_block_range():
+    """Entries whose rank lies outside their 128-rank block's stream range,
+    and sentinel ranks, add nothing; ranks need not be contiguous runs."""
+    g = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    meta = torch.tensor([0, 1, 0, 130, 1 << 28, 129], dtype=torch.int32)
+    start_rows = torch.tensor([0, 3], dtype=torch.int32)
+    out = blocked_rank_reduce(g, meta, start_rows, 2, 0)
+    assert out.shape == (256, 2)
+    torch.testing.assert_close(out[0], g[0] + g[2])
+    torch.testing.assert_close(out[1], g[1])
+    torch.testing.assert_close(out[129], g[5])
+    torch.testing.assert_close(out[130], g[3])
+    assert int((out.abs().sum(1) > 0).sum()) == 4
+
+
+@pytest.mark.parametrize("with_w", [False, True])
+def test_rank_partial_plain_matches_pallas_interpret(with_w):
+    """tests/test_pallas_stencil.py:174's stream through
+    ``blocked_rank_partial`` (interpret mode), the function of the lab's
+    ``variant``, == the port's plain version; bf16 output rounds it."""
+    rng = np.random.RandomState(6)
+    n, c, r = 700, 20, 4
+    m = n * r
+    rows = rng.randn(n, c).astype(np.float32)
+    weights = rng.rand(n, r).astype(np.float32)
+    perm = rng.permutation(m).astype(np.int32)
+    same = rng.rand(m) < 0.6
+    same[0] = False
+    lrank = np.asarray(local_ranks(jnp.asarray(same)))
+    pid, rid = perm // r, perm % r
+    g = np.concatenate([rows, weights], axis=1)[pid]
+    meta = (lrank | (rid << 16)).astype(np.int32)
+    want = np.asarray(jax.jit(lambda gg, mm: blocked_rank_partial(
+        gg, mm, c, r, with_w, interpret=True))(g, meta))
+    got = rank_partial(torch.from_numpy(g), torch.from_numpy(meta), c, r,
+                       with_w, bo=16)
+    m_pad = -(-m // 128) * 128
+    assert got.shape == (m_pad, c + int(with_w)) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want[:m_pad], atol=1e-4)
+    assert not want[m_pad:].any()
+    half = rank_partial(torch.from_numpy(g), torch.from_numpy(meta), c, r,
+                        with_w, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    torch.testing.assert_close(half, got.to(torch.bfloat16))
+    # plain rows (R = 0): the partials of the stream itself
+    want0 = np.asarray(jax.jit(lambda gg, mm: blocked_rank_partial(
+        gg, mm, c + r, 0, interpret=True))(g, lrank.astype(np.int32)))
+    got0 = rank_partial(torch.from_numpy(g), torch.from_numpy(lrank.astype(np.int32)),
+                        c + r, 0)
+    np.testing.assert_allclose(got0.numpy(), want0[:m_pad], atol=1e-4)
+
+
+def test_row_take_plain_is_numpy_take():
+    rng = np.random.RandomState(8)
+    for dt in (torch.float32, torch.bfloat16):
+        table = torch.from_numpy(rng.randn(301, 128).astype(np.float32)).to(dt)
+        idx = rng.randint(0, 301, 300).astype(np.int32)
+        got = row_take(table, torch.from_numpy(idx))
+        want = np.take(table.float().numpy(), idx, axis=0)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    # out-of-range indices clamp to the nearest row
+    out = row_take(table, torch.tensor([-5, 400], dtype=torch.int32))
+    torch.testing.assert_close(out, table[[0, 300]])
+
+
+def test_rank_reduce_plain_rows_mode_sums_unweighted_runs():
+    """R = 0: ``rid`` None, g (M, C), no density; the JAX package's plain-row
+    reduction (``apply_reduce_plan``'s) is the same run sum."""
+    rng = np.random.RandomState(9)
+    g = torch.from_numpy(rng.randn(40, 6).astype(np.float32))
+    start = torch.tensor([0, 5, 5, 30], dtype=torch.int32)
+    end = torch.tensor([5, 5, 30, 40], dtype=torch.int32)
+    got = rank_reduce(g, None, start, end, 6)
+    for t in range(4):
+        s, e = int(start[t]), int(end[t])
+        torch.testing.assert_close(got[t], g[s:e].double().sum(0).float())
+    assert not got[1].any()
+    with pytest.raises(ValueError):
+        rank_reduce_plain(g, None, start, end, 6, True)
 
 
 @pytest.mark.cuda
@@ -320,3 +549,31 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
         torch.testing.assert_close(stencil_tap_tables_sum(t, c, n),
                                    stencil_tap_tables_sum_plain(t, c, n),
                                    rtol=1e-6, atol=1e-5)
+    # the plain-row mode, the fused rank reduction (bit-equal to rank_reduce
+    # on the same runs), the row take and the block partials
+    rank = torch.repeat_interleave(torch.arange(1000, device=dev),
+                                   (end - start).long())
+    lane = rid[:rank.shape[0]].contiguous()
+    starts = torch.cat([start, torch.full((24,), rank.shape[0], device=dev,
+                                          dtype=torch.int32)])[::128].contiguous()
+    for dt in (torch.float32, torch.bfloat16):
+        gd = g.to(dt)[:rank.shape[0]].contiguous()
+        plain_rows = gd[:, :68].contiguous()
+        torch.testing.assert_close(rank_reduce(plain_rows, None, start, end, 68),
+                                   rank_reduce_plain(plain_rows, None, start, end, 68),
+                                   rtol=1e-5, atol=1e-4)
+        meta = ((rank << 2) | lane).int()
+        got = blocked_rank_reduce(gd, meta, starts, 68, 4, True)
+        assert torch.equal(got[:1000], rank_reduce(gd, lane, start, end, 68, True))
+        torch.testing.assert_close(got, blocked_rank_reduce_plain(
+            gd, meta, starts, 68, 4, True), rtol=1e-5, atol=1e-4)
+        table = torch.randn(3001, 128, device=dev).to(dt)
+        idx = torch.randint(0, 3001, (3000,), device=dev, dtype=torch.int32)
+        assert torch.equal(row_take(table, idx), row_take_plain(table, idx))
+        pmeta = (torch.arange(gd.shape[0], device=dev) % 128 // 3
+                 | lane.long() << 16).int()
+        for out_dt in (torch.float32, torch.bfloat16):
+            torch.testing.assert_close(
+                rank_partial(gd, pmeta, 68, 4, True, bo=16, out_dtype=out_dt),
+                rank_partial_plain(gd, pmeta, 68, 4, True, out_dtype=out_dt),
+                rtol=8e-3, atol=1e-4)

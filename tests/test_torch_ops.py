@@ -1,12 +1,14 @@
-"""The port's forward ops against the JAX package's, on lattice tables.
+"""The port's ops against the JAX package's, on lattice tables.
 
-splat, blur, slice, corr_self, corr_cross and the BilateralConv /
-BilateralCorrelation modules get the same numpy inputs and the same
-lattice tables (the port's pyramid, which equals JAX's bit for bit —
-tests/test_torch_lattice.py) on both sides.  Tolerances: float32 results
+splat, blur, slice, corr_self, corr_cross, apply_reduce_plan, gather_rows
+and the BilateralConv / BilateralCorrelation modules get the same numpy
+inputs and the same lattice tables (the port's pyramid, which equals JAX's
+bit for bit — tests/test_torch_lattice.py) on both sides.  Tolerances: float32 results
 differ only in summation order (rtol/atol 1e-5, 1e-4 through the wide
 contractions); bf16 results may round one bf16 ulp apart (2^-8).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from hplflownet_tpu_torch.lattice import LatticeSpec, ScaleSpec, build_pyramid
 from hplflownet_tpu_torch.ops import bcl, corr, segment
 from hplflownet_tpu_torch.params import params_from_jax
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEG15 = tap_negation(1, 3)
 SFM3 = [[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1]]
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
@@ -375,3 +378,179 @@ def test_corr_self_and_corr_cross_vjps_match_jax(jdt, tdt):
     assert [g.dtype for g in got] == [tdt, tdt]
     for g, wnt in zip(got, want):
         _grads_close(g, wnt, bf16)
+
+
+# ---------------------------------------------------------------------------
+# plain-row reductions (apply_reduce_plan, gather_rows) and the fused route
+# ---------------------------------------------------------------------------
+
+def _long_runs_case():
+    """tests/test_ops.py:442's ids: runs of 0 to 1200 entries (several span
+    3-9 blocks of 128), many empty targets, ~5% sentinels."""
+    rng = np.random.RandomState(11)
+    t = 37
+    lens = rng.choice([0, 0, 1, 2, 7, 130, 400, 1200], size=t,
+                      p=[.25, .15, .2, .15, .1, .06, .05, .04])
+    ids = np.repeat(np.arange(t, dtype=np.int32), lens)
+    rng.shuffle(ids)
+    ids[rng.rand(ids.shape[0]) < 0.05] = -1
+    vals = rng.randn(ids.shape[0], 5).astype(np.float32)
+    return ids, vals, t, rng
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_apply_reduce_plan_and_its_vjp_match_jax(jdt, tdt):
+    ids, vals, t, rng = _long_runs_case()
+    jplan = jseg.make_reduce_plan(jnp.asarray(ids), t)
+    tplan = segment.make_reduce_plan(torch.from_numpy(ids), t)
+    y, vjp = jax.vjp(lambda v: jseg.apply_reduce_plan(jplan, v),
+                     jnp.asarray(vals, jdt))
+    ct = rng.randn(*y.shape).astype(np.float32)
+    (want_d,) = vjp(jnp.asarray(ct, jdt))
+    leaf = _leaf(vals, tdt)
+    out = segment.apply_reduce_plan(tplan, leaf)
+    assert out.dtype == tdt
+    bf16 = tdt == torch.bfloat16
+    # float32: JAX takes a run's share past its first block as a prefix
+    # difference; bf16: the float32 sums round to bf16 on both sides
+    scale = float(np.abs(vals).sum(0).max()) + 1.0
+    np.testing.assert_allclose(out.detach().float().numpy(), _np(y),
+                               rtol=8e-3 if bf16 else 0,
+                               atol=(1e-2 if bf16 else 1e-5) * scale)
+    want0 = np.zeros((t, 5))
+    np.add.at(want0, ids[ids >= 0], vals[ids >= 0].astype(np.float64))
+    np.testing.assert_allclose(out.detach().float().numpy(), want0,
+                               rtol=8e-3 if bf16 else 1e-6,
+                               atol=(1e-2 if bf16 else 1e-5) * scale)
+    (got_d,) = torch.autograd.grad(out, leaf, torch.from_numpy(ct).to(tdt))
+    assert got_d.dtype == tdt
+    # the adjoint is a row gather: exact
+    np.testing.assert_array_equal(got_d.float().numpy(), _np(want_d))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_gather_rows_and_its_plan_adjoint_match_jax(jdt, tdt):
+    """tests/test_ops.py:193's gather_rows case on the port's tables."""
+    scales, rng = _pyramid()
+    sp = scales[1]
+    idx = sp.pc1_corr_indices
+    cap = sp.pc1_blur_neighbors.shape[1]
+    c = 6
+    tbl = rng.randn(cap + 1, c).astype(np.float32)
+    tbl[0] = 0.0
+    jplan = jseg.make_reduce_plan(_j(idx), cap)
+    tplan = segment.make_reduce_plan(idx, cap)
+    y, vjp = jax.vjp(lambda tb: jcorr.gather_rows(tb, _j(idx), jplan),
+                     jnp.asarray(tbl, jdt))
+    ct = rng.randn(*y.shape).astype(np.float32)
+    (want_d,) = vjp(jnp.asarray(ct, jdt))
+    leaf = _leaf(tbl, tdt)
+    out = corr.gather_rows(leaf, idx, tplan)
+    np.testing.assert_array_equal(out.detach().float().numpy(), _np(y))
+    (got_d,) = torch.autograd.grad(out, leaf, torch.from_numpy(ct).to(tdt))
+    assert got_d.dtype == tdt
+    _grads_close(got_d[1:], np.asarray(want_d)[1:], tdt == torch.bfloat16)
+    with pytest.raises(ValueError, match="plan"):
+        torch.autograd.grad(corr.gather_rows(leaf, idx).sum(), leaf)
+
+
+def test_exact_mode_turns_the_fused_route_off(monkeypatch):
+    from hplflownet_tpu_torch.ops.dispatch import (exact_mode, exact_mode_active,
+                                                   rank_fused_enabled)
+    monkeypatch.delenv("HPL_RANK_FUSED", raising=False)
+    assert not rank_fused_enabled()
+    monkeypatch.setenv("HPL_RANK_FUSED", "1")
+    assert rank_fused_enabled()
+    with exact_mode():
+        assert exact_mode_active() and not rank_fused_enabled()
+        with exact_mode(False):
+            assert rank_fused_enabled()
+    assert not exact_mode_active() and rank_fused_enabled()
+    # and the splat under exact_mode() does not reach the fused kernel
+    from hplflownet_tpu_torch.kernels import rank_fused
+    scales, rng = _pyramid()
+    sp = scales[0]
+    calls = []
+    real = rank_fused.blocked_rank_reduce
+    monkeypatch.setattr(segment, "blocked_rank_reduce",
+                        lambda *a: calls.append(1) or real(*a))
+    feats = torch.from_numpy(rng.randn(sp.pc1_barycentric.shape[0], 4)
+                             .astype(np.float32))
+    with exact_mode():
+        bcl.splat(feats, sp.pc1_barycentric, sp.pc1_splat_plan)
+    assert not calls
+
+
+@pytest.mark.parametrize("caps", [(448, 192, 128), (160, 64, 32)])
+def test_fused_route_equals_the_default_route(caps, monkeypatch):
+    """With invalid points and (at the small capacities) vertices dropped
+    past capacity, whose points keep their weights: the fused route's
+    ranks skip them as the default route's runs do.  Both plain versions
+    sum in float64, so they agree to float32 rounding."""
+    from hplflownet_tpu_torch.kernels import rank_fused
+    rng = np.random.RandomState(4)
+    pc1 = (rng.randn(96, 3) * 2.5).astype(np.float32)
+    pc2 = pc1 + 0.1 * rng.randn(96, 3).astype(np.float32)
+    valid = rng.rand(96) > 0.2
+    spec = LatticeSpec(d=3, scales=tuple(
+        ScaleSpec(s, b, f, c, capacity=cap) for (s, b, f, c), cap in zip(SFM3, caps)))
+    scales = build_pyramid(spec, torch.from_numpy(pc1), torch.from_numpy(pc2),
+                           torch.from_numpy(valid), torch.from_numpy(valid))
+    if caps[0] == 160:
+        assert any(int(s.pc1_overflow) > 0 for s in scales)
+    calls = []
+    real = rank_fused.blocked_rank_reduce
+    monkeypatch.setattr(segment, "blocked_rank_reduce",
+                        lambda *a: calls.append(1) or real(*a))
+    for sp in scales:
+        for plan, bary in ((sp.pc1_splat_plan, sp.pc1_barycentric),
+                           (sp.pc2_splat_plan, sp.pc2_barycentric)):
+            rows = torch.from_numpy(rng.randn(bary.shape[0], 7).astype(np.float32))
+            for with_w in (False, True):
+                monkeypatch.delenv("HPL_RANK_FUSED", raising=False)
+                want = segment.weighted_reduce(with_w, plan, rows, bary)
+                monkeypatch.setenv("HPL_RANK_FUSED", "1")
+                got = segment.weighted_reduce(with_w, plan, rows, bary)
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert len(calls) == 4 * len(scales)
+
+
+def test_flagship_forward_and_gradients_on_the_fused_route(monkeypatch):
+    """Under HPL_RANK_FUSED=1 the 7-scale forward and train step still
+    match the frozen JAX references, at their tests' tolerances, and every
+    splat and slice adjoint went through the fused kernel."""
+    import chip_smoke
+    from hplflownet_tpu_torch.kernels import rank_fused
+    from hplflownet_tpu_torch.models import HPLFlowNet
+    from hplflownet_tpu_torch.params import seeded_jax_params
+    from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
+    from hplflownet_tpu_torch.train.step import loss_and_grad
+    try:
+        from test_torch_model import ATOL, MAX_REL, REF_NPZ, SFM7
+    except ImportError:
+        from tests.test_torch_model import ATOL, MAX_REL, REF_NPZ, SFM7
+    calls = []
+    real = rank_fused.blocked_rank_reduce
+    monkeypatch.setattr(segment, "blocked_rank_reduce",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("HPL_RANK_FUSED", "1")
+    ref = np.load(REF_NPZ)
+    model = HPLFlowNet(SFM7, device="cpu")
+    params_from_jax(seeded_jax_params(model, int(ref["seed"])), model)
+    spec = make_lattice_spec(SFM7, [int(c) for c in ref["capacities"]])
+    flow = flow_forward(model, spec, ref["pc1"], ref["pc2"],
+                        adjoint_plans=False).numpy()
+    err = np.abs(flow - ref["flow"]).max()
+    assert err <= ATOL and err / np.abs(ref["flow"]).max() <= MAX_REL, err
+    assert len(calls) == 18
+
+    tref = np.load(os.path.join(ROOT, chip_smoke.TRAIN_REF_NPZ))
+    params_from_jax(seeded_jax_params(model, int(tref["seed"])), model)
+    n = tref["pc1"].shape[1]
+    batch = dict(pc1=tref["pc1"], pc2=tref["pc2"], sf=tref["sf"],
+                 valid1=np.ones((1, n), bool), valid2=np.ones((1, n), bool))
+    loss, _, grads = loss_and_grad(
+        model, make_lattice_spec(SFM7, [int(c) for c in tref["capacities"]]),
+        dict(model.named_parameters()), batch)
+    chip_smoke.check_train_reference(tref, float(loss), grads)
+    assert len(calls) == 18 + 25
