@@ -7,11 +7,17 @@ Phases, each printing a line with its elapsed seconds:
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    compile every CUDA kernel of the main path with nvcc, in
-            parallel, into hplflownet_tpu_torch/_build/;
+            parallel, into hplflownet_tpu_torch/_build/, printing ptxas's
+            registers, shared memory and spills per kernel;
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the forward and the train step give it, in float32
             and bfloat16: max error, kernel and plain time, the bound, and
-            a library yardstick;
+            a library yardstick; for the two stencil kernels (through the
+            tables' stencil plans) also "gather + matmul" (the spread's
+            materialisation with the GEMM), TFLOP/s over present taps, the
+            plan's block coverage, reruns bit for bit, and each bf16 target
+            against the library call; nvidia-smi samples SM clock, power
+            and temperature meanwhile;
 4. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
             tests/data/torch_port_ref_n64.npz, and the float32 train step's
@@ -19,7 +25,8 @@ Phases, each printing a line with its elapsed seconds:
             tests/data/torch_port_train_ref_n64.npz;
 5. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
             width (7 scales, bf16 compute): the launch counts of the
-            forward's kernels, the flow's shape and finiteness, zero
+            forward's kernels and its stencil plans (and the CUDA kernels
+            one pair's plans launch), the flow's shape and finiteness, zero
             overflow, the same forward with the plain versions forced, and
             pairs/s;
 6. train    the flagship train step (``train.step.make_train_step``: the
@@ -36,7 +43,9 @@ Phases, each printing a line with its elapsed seconds:
             environment is restored afterwards;
 8. tools    the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
-            counts of ``row_take`` and ``rank_partial`` in them.
+            counts of ``row_take`` and ``rank_partial`` in them;
+9. plans    the CUDA kernels that one pair's stencil plans launch
+            (torch.profiler; last, as tracing slows the host afterwards).
 
 Then one JSON line listing every kernel, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -168,6 +177,69 @@ def check_train_reference(ref, loss: float, grads: dict,
     return rows
 
 
+def plan_kernels(scales) -> dict:
+    """CUDA kernels launched by one pair's stencil plans
+    (``models.hplflownet.stencil_plans``): the forward's row orders alone
+    and the train step's with the vertex lists (None in a CPU rehearsal)."""
+    from hplflownet_tpu_torch.models.hplflownet import stencil_plans
+    if DEVICE != "cuda":
+        return dict(kernels_forward=None, kernels_step=None)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for key, lists in (("kernels_forward", False), ("kernels_step", True)):
+        stencil_plans(scales, lists=lists)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stencil_plans(scales, lists=lists)
+            sync()
+        out[key] = int(sum(e.count for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA))
+    return out
+
+
+class SmiSampler:
+    """``nvidia-smi`` sampling SM clock, power draw and temperature every
+    200 ms while a phase runs; ``summary()`` gives each one's range."""
+
+    QUERY = "clocks.sm,clocks.mem,power.draw,power.limit,temperature.gpu"
+
+    def __enter__(self):
+        self.proc = None
+        if DEVICE == "cuda":
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", f"--query-gpu={self.QUERY}",
+                 "--format=csv,noheader,nounits", "-lms", "200"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.lines = []
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                out, _ = self.proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, _ = self.proc.communicate()
+            self.lines = [ln for ln in out.splitlines() if ln.strip()]
+        return False
+
+    def summary(self) -> dict:
+        cols = self.QUERY.split(",")
+        vals = {c: [] for c in cols}
+        for ln in self.lines:
+            parts = [x.strip() for x in ln.split(",")]
+            for c, x in zip(cols, parts):
+                try:
+                    vals[c].append(float(x))
+                except ValueError:
+                    pass
+        return {c: [min(v), max(v)] for c, v in vals.items() if v} | {
+            "samples": len(self.lines)}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -190,7 +262,7 @@ def phase_build():
     built = _build.build(verbose=True)
     for name, (secs, out) in built.items():
         info = [ln.strip() for ln in out.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if any(k in ln for k in ("entry function", "registers", "spill"))]
         log(f"built {name}.cu in {secs:.1f} s")
         for ln in info:
             log(f"  ptxas: {ln}")
@@ -212,12 +284,119 @@ def _lattice_case_tables(dev):
                              adjoint_plans=True)
 
 
-def phase_kernels(results):
+def plan_coverage(nb, h_in, order) -> float:
+    """Share of the F x H_out tap-rows a block-skipping kernel computes when
+    it takes the rows in ``order``, 128 at a time."""
+    from hplflownet_tpu_torch.kernels.stencil_plan import (
+        ROW_BLOCK, block_tap_counts, presence)
+    f, h = nb.shape
+    blocks = block_tap_counts(presence(nb, h_in), order)
+    return float(blocks.sum()) * ROW_BLOCK / (f * h)
+
+
+def _stencil_cases(scales, randn) -> list:
+    """stencil_gather_matmul (kernel 1) at every shape of the forward and
+    the train step's input gradients, through the tables' stencil plans."""
     import torch
     from hplflownet_tpu_torch.kernels.stencil import (
         stencil_gather_matmul, stencil_gather_matmul_plain)
-    from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
+    from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
     from hplflownet_tpu_torch.lattice.offsets import tap_negation
+    dev = scales[0].pc1_blur_neighbors.device
+    neg = torch.tensor(tap_negation(1, 3), device=dev)
+    h0, h1, h2 = CAPACITIES[0], CAPACITIES[1], CAPACITIES[2]
+    tables = {"s0": (scales[0].pc1_blur_neighbors, h0),
+              "s1": (scales[1].pc1_blur_neighbors, h1),
+              "s2": (scales[2].pc1_blur_neighbors, h2),
+              "self": (scales[2].pc1_corr_indices, h2),
+              "cross": (scales[2].pc2_corr_uniq, h2)}
+    plans = {k: make_stencil_plan(nb, h, lists=False)
+             for k, (nb, h) in tables.items()}
+    # name, table key, negated taps, C_in, C_out, act slope, output dtype,
+    # bias: as the main path calls the kernel
+    cases = [
+        ("bcn1 blur", "s0", False, 68, 64, 0.1, "compute", True),
+        ("bcn1_ decoder blur", "s0", False, 580, 1024, 0.1, "compute", True),
+        ("bcn2_ decoder blur", "s1", False, 324, 512, 0.1, "compute", True),
+        ("bcn3_ decoder blur", "s2", False, 388, 256, 0.1, "compute", True),
+        ("corr_self", "self", False, 128, 32, None, "float32", True),
+        ("corr_cross", "cross", False, 64, 480, None, "float32", False),
+        # the decoder blur's input gradient: negated taps, transposed
+        # kernel, the forward's row order
+        ("bcn1_ blur input gradient", "s0", True, 1024, 580, None, "compute",
+         False),
+    ]
+    rows = []
+    for name, key, negated, c_in, c_out, slope, out_kind, has_bias in cases:
+        nb, h_in = tables[key]
+        nb = (nb[neg] if negated else nb).contiguous()
+        plan = plans[key]
+        order = plan.order
+        f, h_out = nb.shape
+        nnz = int(((nb >= 0) & (nb < h_in)).sum())
+        cover = plan_coverage(nb, h_in, order)
+        natural = plan_coverage(nb, h_in, torch.arange(
+            h_out, dtype=torch.int32, device=dev))
+        table32 = randn(h_in, c_in)
+        w32 = randn(f, c_in, c_out, scale=(2.0 / (f * (c_in + c_out))) ** 0.5)
+        bias = randn(c_out, scale=0.1)
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            table, w = table32.to(dt), w32.to(dt)
+            out_dt = dt if out_kind == "compute" else torch.float32
+            b = bias if has_bias else None
+
+            def kern():
+                return stencil_gather_matmul(table, nb, w, bias=b,
+                                             act_slope=slope, out_dtype=out_dt,
+                                             plan=plan)
+            got = kern()
+            again = kern()
+            want = stencil_gather_matmul_plain(table, nb, w, bias=b,
+                                               act_slope=slope, out_dtype=out_dt)
+            sync()
+            if not torch.equal(got, again):
+                raise AssertionError(f"stencil {name} {dtn}: rerun differs")
+            # float32 sums differ only in order (K = F * C_in terms); a
+            # bf16 output may then round one bf16 ulp (2^-8) either way
+            atol, rtol = ((1e-3, 1e-4) if out_dt == torch.float32
+                          else (1e-2, 1e-2))
+            err = max_err(got, want, atol, rtol, f"stencil {name} {dtn}")
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(lambda: stencil_gather_matmul_plain(
+                table, nb, w, bias=b, act_slope=slope, out_dtype=out_dt), reps=3)
+            pad = torch.cat([table.new_zeros(1, c_in), table])
+            idx = (nb.t() + 1).long()
+            wm = w.reshape(f * c_in, c_out)
+            spread = pad[idx].reshape(h_out, f * c_in)
+            lib_ms = cuda_ms(lambda: torch.matmul(spread, wm))
+            del spread
+            gm_ms = cuda_ms(lambda: torch.matmul(
+                pad[idx].reshape(h_out, f * c_in), wm))
+            s_in, s_out = table.element_size(), got.element_size()
+            nbytes = (table.numel() * s_in + nb.numel() * 4 + w.numel() * s_in
+                      + got.numel() * s_out + (c_out * 4 if b is not None else 0))
+            flops = 2.0 * nnz * c_in * c_out
+            bms, by = bound_ms(nbytes, flops, dtn)
+            row = dict(case=name, dtype=dtn,
+                       shape=f"H={h_out} F={f} C_in={c_in} C_out={c_out}",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms, gather_matmul_ms=gm_ms,
+                       tflops=flops / ms / 1e9, present=nnz / (f * h_out),
+                       coverage=cover, coverage_natural=natural)
+            rows.append(row)
+            log(f"stencil_gather_matmul {name} {dtn} [{row['shape']}]: "
+                f"max_abs_err {err:.3e} (atol {atol} rtol {rtol}), rerun "
+                f"bit-identical; kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s "
+                f"over present taps), plain {plain_ms:.4f} ms, matmul over the "
+                f"spread {lib_ms:.4f} ms, gather + matmul {gm_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}); present taps {row['present']:.3f}, plan "
+                f"block coverage {cover:.3f} (natural order {natural:.3f})")
+    return rows
+
+
+def phase_kernels(results):
+    import torch
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -226,65 +405,7 @@ def phase_kernels(results):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    # name, neighbour table, table rows, C_in, C_out, act slope, output
-    # dtype, bias: as the main path calls the kernel
-    nb0, h0 = scales[0].pc1_blur_neighbors, CAPACITIES[0]
-    h2 = CAPACITIES[2]
-    neg = torch.tensor(tap_negation(1, 3), device=dev)
-    stencil_cases = [
-        ("bcn1 blur", nb0, h0, 68, 64, 0.1, "compute", True),
-        ("bcn1_ decoder blur", nb0, h0, 580, 1024, 0.1, "compute", True),
-        ("corr_self", scales[2].pc1_corr_indices, h2, 128, 32, None, "float32", True),
-        ("corr_cross", scales[2].pc2_corr_uniq, h2, 64, 480, None, "float32", False),
-        # the decoder blur's input gradient: negated taps, transposed kernel
-        ("bcn1_ blur input gradient", nb0[neg], h0, 1024, 580, None, "compute",
-         False),
-    ]
-    stencil_rows = []
-    for name, nb, h_in, c_in, c_out, slope, out_kind, has_bias in stencil_cases:
-        nb = nb.contiguous()
-        f, h_out = nb.shape
-        nnz = int((nb >= 0).sum())
-        table32 = randn(h_in, c_in)
-        w32 = randn(f, c_in, c_out, scale=(2.0 / (f * (c_in + c_out))) ** 0.5)
-        bias = randn(c_out, scale=0.1)
-        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            table, w = table32.to(dt), w32.to(dt)
-            out_dt = dt if out_kind == "compute" else torch.float32
-            b = bias if has_bias else None
-            got = stencil_gather_matmul(table, nb, w, bias=b, act_slope=slope,
-                                        out_dtype=out_dt)
-            want = stencil_gather_matmul_plain(table, nb, w, bias=b,
-                                               act_slope=slope, out_dtype=out_dt)
-            sync()
-            # float32 sums differ only in order (K = F * C_in terms); a
-            # bf16 output may then round one bf16 ulp (2^-8) either way
-            atol, rtol = ((1e-3, 1e-4) if out_dt == torch.float32
-                          else (1e-2, 1e-2))
-            err = max_err(got, want, atol, rtol, f"stencil {name} {dtn}")
-            ms = cuda_ms(lambda: stencil_gather_matmul(
-                table, nb, w, bias=b, act_slope=slope, out_dtype=out_dt))
-            plain_ms = cuda_ms(lambda: stencil_gather_matmul_plain(
-                table, nb, w, bias=b, act_slope=slope, out_dtype=out_dt), reps=3)
-            spread = torch.cat([table.new_zeros(1, c_in), table])[
-                (nb.t() + 1).long()].reshape(h_out, f * c_in)
-            wm = w.reshape(f * c_in, c_out)
-            lib_ms = cuda_ms(lambda: torch.matmul(spread, wm))
-            del spread
-            s_in, s_out = table.element_size(), got.element_size()
-            nbytes = (table.numel() * s_in + nb.numel() * 4 + w.numel() * s_in
-                      + got.numel() * s_out + (c_out * 4 if b is not None else 0))
-            flops = 2.0 * nnz * c_in * c_out
-            bms, by = bound_ms(nbytes, flops, dtn)
-            row = dict(case=name, dtype=dtn, shape=f"H={h_out} F={f} C_in={c_in} C_out={c_out}",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=lib_ms,
-                       tflops=flops / ms / 1e9)
-            stencil_rows.append(row)
-            log(f"stencil_gather_matmul {name} {dtn} [{row['shape']}]: "
-                f"max_abs_err {err:.3e} (atol {atol} rtol {rtol}); kernel "
-                f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"matmul over the spread {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    stencil_rows = _stencil_cases(scales, randn)
 
     # the splat streams at scale 2 (the 127k x 68 case) and scale 0, and
     # the decoder's slice adjoint (the 1024-wide cotangent, no density)
@@ -347,6 +468,11 @@ def phase_kernels(results):
     results["fused"] = _fused_cases(scales, randn)
     results["take"] = _take_cases(scales, gen)
     results["partial"] = _partial_cases(gen)
+    results["targets"] = target_rows(results)
+    for t in results["targets"]:
+        log(f"target {t['case']} (bf16): kernel {t['ms']:.4f} ms vs "
+            f"{t['factor']:g} x library {t['library_ms']:.4f} ms: "
+            f"{'met' if t['met'] else 'MISSED'}")
 
 
 def _index_add_ms(sv, ids, n_out, dev) -> float:
@@ -549,24 +675,32 @@ def _partial_cases(gen) -> list:
 
 
 def _dkernel_cases(scales, randn) -> list:
-    """stencil_dkernel at the train step's three weight-gradient shapes."""
+    """stencil_dkernel (kernel 3) at the train step's weight-gradient shapes
+    (the decoder blurs at scales 0-2, both correlations), through the
+    tables' stencil plans."""
     import torch
     from hplflownet_tpu_torch.kernels.dkernel import (stencil_dkernel,
-                                                      stencil_dkernel_plain)
-    h0, h2 = CAPACITIES[0], CAPACITIES[2]
+                                                      stencil_dkernel_plain,
+                                                      vertex_splits)
+    from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
+    h0, h1, h2 = CAPACITIES[0], CAPACITIES[1], CAPACITIES[2]
     cases = [("bcn1_ blur dW", scales[0].pc1_blur_neighbors, h0, 580, 1024),
+             ("bcn2_ blur dW", scales[1].pc1_blur_neighbors, h1, 324, 512),
+             ("bcn3_ blur dW", scales[2].pc1_blur_neighbors, h2, 388, 256),
              ("corr_self dW", scales[2].pc1_corr_indices, h2, 128, 32),
              ("corr_cross dW", scales[2].pc2_corr_uniq, h2, 64, 480)]
     rows = []
     for name, nb, h_in, c_in, c_out in cases:
         nb = nb.contiguous()
         f, h_out = nb.shape
-        nnz = int((nb >= 0).sum())
+        plan = make_stencil_plan(nb, h_in)
+        nnz = int(plan.counts.sum())
+        splits, chunk = vertex_splits(f, c_in, c_out, h_out)
         table32, g32 = randn(h_in, c_in), randn(h_out, c_out)
         for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             table, g = table32.to(dt), g32.to(dt)
-            got = stencil_dkernel(table, nb, g)
-            again = stencil_dkernel(table, nb, g)
+            got = stencil_dkernel(table, nb, g, plan)
+            again = stencil_dkernel(table, nb, g, plan)
             want = stencil_dkernel_plain(table, nb, g)
             sync()
             if not torch.equal(got, again):
@@ -575,13 +709,15 @@ def _dkernel_cases(scales, randn) -> list:
             # order: 2e-4 of the largest entry
             atol = 2e-4 * float(want.abs().max())
             err = max_err(got, want, atol, 0.0, f"stencil_dkernel {name} {dtn}")
-            ms = cuda_ms(lambda: stencil_dkernel(table, nb, g))
+            ms = cuda_ms(lambda: stencil_dkernel(table, nb, g, plan))
             plain_ms = cuda_ms(lambda: stencil_dkernel_plain(table, nb, g), reps=3)
-            spread_t = torch.cat([table.new_zeros(1, c_in), table])[
-                (nb + 1).long()].transpose(1, 2)                # (F, C_in, H_out)
+            pad = torch.cat([table.new_zeros(1, c_in), table])
+            idx = (nb + 1).long()
             g_b = g.expand(f, h_out, c_out)
+            spread_t = pad[idx].transpose(1, 2)                  # (F, C_in, H_out)
             lib_ms = cuda_ms(lambda: torch.bmm(spread_t, g_b))
             del spread_t
+            gm_ms = cuda_ms(lambda: torch.bmm(pad[idx].transpose(1, 2), g_b))
             s_in = table.element_size()
             nbytes = (table.numel() * s_in + nb.numel() * 4 + g.numel() * s_in
                       + got.numel() * 4)
@@ -590,13 +726,38 @@ def _dkernel_cases(scales, randn) -> list:
             row = dict(case=name, dtype=dtn,
                        shape=f"H={h_out} F={f} C_in={c_in} C_out={c_out}",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=lib_ms, tflops=flops / ms / 1e9)
+                       bound_by=by, library_ms=lib_ms, gather_matmul_ms=gm_ms,
+                       tflops=flops / ms / 1e9, present=nnz / (f * h_out),
+                       splits=splits, chunk=chunk)
             rows.append(row)
             log(f"stencil_dkernel {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol {atol:.2e}), rerun bit-identical; kernel "
-                f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"bmm over the spread {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s over present taps), "
+                f"plain {plain_ms:.4f} ms, bmm over the spread {lib_ms:.4f} ms, "
+                f"gather + bmm {gm_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+                f"present taps {row['present']:.3f}, {splits} chunk(s) of {chunk}")
     return rows
+
+
+# (kind, case) -> the yardstick it must meet: no slower than the library
+# call at bcn1_, within 2x of it at the correlations
+TARGETS = (("stencil", "bcn1_ decoder blur", 1.0),
+           ("stencil", "bcn1_ blur input gradient", 1.0),
+           ("dkernel", "bcn1_ blur dW", 1.0),
+           ("stencil", "corr_self", 2.0), ("stencil", "corr_cross", 2.0),
+           ("dkernel", "corr_self dW", 2.0), ("dkernel", "corr_cross dW", 2.0))
+
+
+def target_rows(results) -> list:
+    """Each bf16 target case: kernel ms against its library call's."""
+    out = []
+    for kind, case, factor in TARGETS:
+        row = [r for r in results[kind]
+               if r["case"] == case and r["dtype"] == "bfloat16"][0]
+        out.append(dict(kind=kind, case=case, ms=row["ms"],
+                        library_ms=row["library_ms"], factor=factor,
+                        met=row["ms"] <= factor * row["library_ms"]))
+    return out
 
 
 def _tap_tables_cases(scales, randn) -> list:
@@ -688,6 +849,7 @@ def phase_main_path(results):
     from hplflownet_tpu_torch.kernels import plain_kernels
     from hplflownet_tpu_torch.kernels.splat import rank_reduce
     from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
+    from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
     from hplflownet_tpu_torch.lattice import build_pyramid
     from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
     from hplflownet_tpu_torch.models import HPLFlowNet
@@ -704,10 +866,12 @@ def phase_main_path(results):
                 "rank_reduce": rank_reduce}
     for w in wrappers.values():
         w.launches = 0
+    make_stencil_plan.builds = 0
     flow = flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
     sync()
     launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"main path launches: {launches}")
+    builds = make_stencil_plan.builds
+    log(f"main path launches: {launches}; stencil plans built: {builds}")
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
@@ -729,6 +893,7 @@ def phase_main_path(results):
     counts = [[int(s.pc1_num_valid), int(s.pc2_num_valid)] for s in scales]
     log(f"flow {out.shape} finite, |flow| max {np.abs(out).max():.4f}; "
         f"all overflow counters 0; vertices per scale {counts}")
+    results.setdefault("plans", {})["builds_forward"] = builds
 
     before = dict(launches)
     with plain_kernels():
@@ -769,6 +934,7 @@ def phase_train(results):
     from hplflownet_tpu_torch.kernels.dkernel import stencil_dkernel
     from hplflownet_tpu_torch.kernels.splat import rank_reduce
     from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
+    from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
     from hplflownet_tpu_torch.kernels.tap_tables import stencil_tap_tables_sum
     from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
     from hplflownet_tpu_torch.models import HPLFlowNet
@@ -792,10 +958,13 @@ def phase_train(results):
                 "stencil_tap_tables_sum": stencil_tap_tables_sum}
     for w in wrappers.values():
         w.launches = 0
+    make_stencil_plan.builds = 0
     new_state, loss, overflow = step.with_overflow(state, batch)
     sync()
     launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"train step launches: {launches}")
+    results.setdefault("plans", {})["builds_step"] = make_stencil_plan.builds
+    log(f"train step launches: {launches}; stencil plans built: "
+        f"{make_stencil_plan.builds}")
     for k, n in launches.items():
         if n <= 0 and DEVICE == "cuda":      # a CPU rehearsal launches nothing
             raise AssertionError(f"{k} was not launched in the train step")
@@ -1018,6 +1187,27 @@ def phase_tools(results):
             f"{k} {v:.4f} ms" for k, v in tool["ms"].items()))
 
 
+def phase_plans(results):
+    """The CUDA kernels one pair's stencil plans launch, counted with
+    torch.profiler; last, because the profiler's tracing slows the host
+    for the rest of the process."""
+    import torch
+    from hplflownet_tpu_torch.lattice import build_pyramid
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.pipeline import make_lattice_spec
+    pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
+    with torch.inference_mode():
+        scales = build_pyramid(make_lattice_spec(SFM7, CAPACITIES),
+                               torch.from_numpy(pc1[0]).to(DEVICE),
+                               torch.from_numpy(pc2[0]).to(DEVICE))
+    plans = results.setdefault("plans", {})
+    plans.update(plan_kernels(scales))
+    log(f"stencil plans: {plans.get('builds_forward')} per forward, "
+        f"{plans.get('builds_step')} per train step; CUDA kernels of one "
+        f"pair's plans: {plans['kernels_forward']} (forward, row orders), "
+        f"{plans['kernels_step']} (train step, with the vertex lists)")
+
+
 def kernels_line(results) -> dict:
     """The contract line: one entry per kernel, at its widest bf16 case."""
     def pick(kind, case):
@@ -1085,13 +1275,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     results: dict = {}
+
+    def sampled(phase):
+        with SmiSampler() as smi:
+            phase(results)
+        results["smi_kernels"] = smi.summary()
+        log(f"nvidia-smi during the kernel phase (min, max): "
+            f"{results['smi_kernels']}")
+
     phases = [("device", phase_device), ("build", phase_build),
-              ("kernels", lambda: phase_kernels(results)),
+              ("kernels", lambda: sampled(phase_kernels)),
               ("reference", phase_reference),
               ("main path", lambda: phase_main_path(results)),
               ("train", lambda: phase_train(results)),
               ("fused", lambda: phase_fused(results)),
-              ("tools", lambda: phase_tools(results))]
+              ("tools", lambda: phase_tools(results)),
+              ("plans", lambda: phase_plans(results))]
     outputs = {}
     for i, (name, fn) in enumerate(phases, 1):
         t = time.perf_counter()

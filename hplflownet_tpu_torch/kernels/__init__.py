@@ -17,6 +17,10 @@ Every kernel replaces one Pallas TPU kernel of ``hplflownet_tpu``:
 * ``rank_partial.rank_partial`` (csrc/rank_partial.cu) replaces the
   rank-partial lab's ``variant`` (``tools/rank_partial_lab.py``).
 
+The two stencil kernels walk a stencil plan per neighbour table
+(``stencil_plan.py``: the row order and per-tap vertex lists, plain
+PyTorch), which the model makes once per pair.
+
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never falls back.  The one exception is
 explicit: inside ``with plain_kernels():`` the wrappers run their plain

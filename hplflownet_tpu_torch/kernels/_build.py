@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``_build/lib<name>-<hash>.so`` for ``sm_90a`` (Hopper).  The hash
 covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  No PyTorch headers are compiled: a build takes
+unchanged one is reused (the hash also covers the shared headers,
+``csrc/*.cuh``).  No PyTorch headers are compiled: a build takes
 seconds, not the minutes of ``torch.utils.cpp_extension``.
 
 Every pointer and the CUDA stream cross the boundary as ``ctypes.c_void_p``
@@ -53,6 +54,8 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # included sources
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

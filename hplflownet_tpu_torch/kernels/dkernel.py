@@ -5,8 +5,11 @@
 Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``stencil_dkernel``
 (:340; ``pallas_call`` :406, body ``_dk_kernel`` :304).  On CUDA tensors the
 wrapper launches ``csrc/stencil_dkernel.cu``; on CPU tensors it runs
-:func:`stencil_dkernel_plain`.  The kernel source states its bound on the
-card and what its design does about it.
+:func:`stencil_dkernel_plain`.  The kernel sums each tap over the stencil
+plan's compacted list of present vertices (``kernels.stencil_plan``), which
+the caller passes as ``plan`` (made from the table when it is None).  The
+kernel source states its bound on the card and what its design does about
+it.
 """
 
 from __future__ import annotations
@@ -17,14 +20,14 @@ import torch
 
 from . import plain_forced
 from ._build import check, load
+from .stencil_plan import StencilPlan, make_stencil_plan
 
 __all__ = ["stencil_dkernel", "stencil_dkernel_plain", "vertex_splits"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64            # the kernel's C_in and C_out tile
-_STAGE = 32           # vertices per stage
-_TARGET_BLOCKS = 528  # 4 blocks on each of the H100's 132 SMs
-_MIN_CHUNK = 8        # stages per vertex chunk, at least
+_STAGE = 64           # list entries per stage
+_TARGET_BLOCKS = 264  # two waves of one block on each of the H100's 132 SMs
+_MIN_CHUNK = 4        # stages per chunk, at least
 
 
 def stencil_dkernel_plain(table, neighbors, g):
@@ -36,14 +39,26 @@ def stencil_dkernel_plain(table, neighbors, g):
     return torch.einsum("fhi,ho->fio", spread, g.to(torch.float32))
 
 
+def _tile(c_in: int, c_out: int):
+    """The bf16 kernel's output tile (C_in rows, C_out columns), as
+    ``launch_bf16`` in csrc/stencil_dkernel.cu picks it."""
+    if c_in <= 64 and c_out > 128:
+        return 64, 256
+    return 128, (64 if c_out <= 64 else 128)
+
+
 def vertex_splits(num_taps: int, c_in: int, c_out: int, h_out: int):
-    """(splits, chunk): how the kernel cuts the vertex axis.
+    """(splits, chunk): how the kernel cuts each tap's vertex list.
 
     A function of the shapes alone, so a rerun sums in the same order.
-    Output tiles too few to fill the card get more vertex chunks, each of at
-    least ``_MIN_CHUNK`` stages.
+    Output tiles too few to fill the card get more chunks, each of at least
+    ``_MIN_CHUNK`` stages.  The grid is sized for a list of ``h_out``
+    entries, which only an occupied centre tap nears: the blocks of chunks
+    past a tap's count exit at once, so the longest list (the centre tap's)
+    runs in the most chunks and no block sums more than ``chunk`` entries.
     """
-    tiles = (-(-c_in // _TILE)) * (-(-c_out // _TILE)) * num_taps
+    tile_in, tile_out = _tile(c_in, c_out)
+    tiles = (-(-c_in // tile_in)) * (-(-c_out // tile_out)) * num_taps
     stages = max(1, -(-h_out // _STAGE))
     splits = max(1, min(-(-_TARGET_BLOCKS // tiles), stages // _MIN_CHUNK))
     chunk = -(-stages // splits) * _STAGE
@@ -69,14 +84,32 @@ def _check_args(table, neighbors, g):
             raise ValueError("arguments must be contiguous")
 
 
+def _check_plan(plan: StencilPlan, neighbors):
+    f, h_out = neighbors.shape
+    for name, t, shape in (("verts", plan.verts, (f, h_out)),
+                           ("rows", plan.rows, (f, h_out)),
+                           ("counts", plan.counts, (f,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"plan.{name} must be int32 of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != neighbors.device or t.stride(-1) != 1:
+            raise ValueError(f"plan.{name} must be on {neighbors.device}, "
+                             f"contiguous along its last axis")
+    if plan.rows.stride() != plan.verts.stride():
+        raise ValueError("plan.rows and plan.verts must share their strides")
+
+
 def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
                     neighbors: torch.Tensor,  # (F, H_out) int32, -1 absent
-                    g: torch.Tensor           # (H_out, C_out) cotangent
+                    g: torch.Tensor,          # (H_out, C_out) cotangent
+                    plan: StencilPlan | None = None,  # of (neighbors, H)
                     ) -> torch.Tensor:
     """dW[f] = sum_v table[neighbors[f, v]]^T g[v] -> (F, C_in, C_out) f32.
 
     table and g are float32 or bfloat16 alike; sums are float32 and taps with
-    id -1 add nothing.  Deterministic: no atomics, a fixed summation order.
+    id -1 or an id past the table add nothing.  On the card the kernel reads
+    the plan's lists, not ``neighbors``.  Deterministic: no atomics, a fixed
+    summation order.
     """
     if table.device.type == "cpu" or plain_forced():
         return stencil_dkernel_plain(table, neighbors, g)
@@ -86,6 +119,9 @@ def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
     f, h_out = neighbors.shape
     h_in, c_in = table.shape
     c_out = g.shape[1]
+    if plan is None or plan.verts is None:
+        plan = make_stencil_plan(neighbors, h_in)
+    _check_plan(plan, neighbors)
     out = torch.empty((f, c_in, c_out), dtype=torch.float32, device=table.device)
     splits, chunk = vertex_splits(f, c_in, c_out, h_out)
     partial = (torch.empty((splits, f, c_in, c_out), dtype=torch.float32,
@@ -94,12 +130,15 @@ def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
     fn = lib.hpl_stencil_dkernel
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = fn(table.data_ptr(), h_in, c_in, neighbors.data_ptr(), f, h_out,
+    rc = fn(table.data_ptr(), h_in, c_in, plan.verts.data_ptr(),
+            plan.rows.data_ptr(), plan.counts.data_ptr(), f,
+            plan.verts.stride(0),
             g.data_ptr(), c_out, chunk, splits,
             partial.data_ptr() if partial is not None else None,
             out.data_ptr(), _DTYPES[table.dtype], stream)

@@ -5,8 +5,10 @@
 Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``stencil_gather_matmul``
 (:270; ``pallas_call`` :169, body ``_kernel`` :93).  On CUDA tensors the
 wrapper launches ``csrc/stencil_gather_matmul.cu``; on CPU tensors it runs
-:func:`stencil_gather_matmul_plain`.  The kernel source states its bound on
-the card (operations) and what its design does about it.
+:func:`stencil_gather_matmul_plain`.  The kernel walks the output rows in
+the stencil plan's row order (``kernels.stencil_plan``); the caller passes
+the plan (made from the table when it is None).  The kernel source states
+its bound on the card (operations) and what its design does about it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from . import plain_forced
 from ._build import check, load
+from .stencil_plan import StencilPlan, make_stencil_plan
 
 __all__ = ["stencil_gather_matmul", "stencil_gather_matmul_plain",
            "apply_epilogue"]
@@ -58,7 +61,7 @@ def stencil_gather_matmul_plain(table, neighbors, weight, bias=None,
     return apply_epilogue(x, bias, act_slope, out_dtype)
 
 
-def _check_args(table, neighbors, weight, bias, out_dtype):
+def _check_args(table, neighbors, weight, bias, out_dtype, order=None):
     dev = table.device
     if table.dtype not in _DTYPES or weight.dtype != table.dtype:
         raise TypeError(f"table and weight must share float32 or bfloat16, got "
@@ -75,6 +78,12 @@ def _check_args(table, neighbors, weight, bias, out_dtype):
                          f"neighbors {tuple(neighbors.shape)}, "
                          f"weight {tuple(weight.shape)}")
     ts = [table, neighbors, weight]
+    if order is not None:
+        if order.dtype != torch.int32 or order.shape != (neighbors.shape[1],):
+            raise ValueError(f"order must be int32 of shape "
+                             f"({neighbors.shape[1]},), got {order.dtype} "
+                             f"{tuple(order.shape)}")
+        ts.append(order)
     if bias is not None:
         if bias.dtype != torch.float32 or bias.shape != (weight.shape[2],):
             raise ValueError("bias must be float32 of shape (C_out,)")
@@ -91,21 +100,29 @@ def stencil_gather_matmul(table: torch.Tensor,      # (H, C_in), no sentinel row
                           weight: torch.Tensor,     # (F, C_in, C_out)
                           bias: torch.Tensor | None = None,   # (C_out,) f32
                           act_slope: float | None = None,
-                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          out_dtype: torch.dtype = torch.float32,
+                          plan: StencilPlan | None = None,
+                          ) -> torch.Tensor:
     """act(sum_f table[neighbors[f]] @ weight[f] + bias) -> (H_out, C_out).
 
     Inputs are float32 or bfloat16 (table and weight alike); accumulation is
     float32 and the epilogue (:func:`apply_epilogue`) runs in float32 before
-    the single write in ``out_dtype``.  Taps with id -1 add nothing.
+    the single write in ``out_dtype``.  Taps with id -1 or an id past the
+    table add nothing.  ``plan`` is the stencil plan of ``neighbors`` (for
+    the negated-tap table of an input gradient, the forward table's); the
+    kernel reads its ``order``, a permutation of the output rows that sets
+    which rows a block takes, and the result does not depend on it.
     """
     if table.device.type == "cpu" or plain_forced():
         return stencil_gather_matmul_plain(table, neighbors, weight, bias,
                                            act_slope, out_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
-    _check_args(table, neighbors, weight, bias, out_dtype)
     f, h_out = neighbors.shape
     h_in, c_in = table.shape
+    order = (make_stencil_plan(neighbors, h_in, lists=False) if plan is None
+             else plan).order
+    _check_args(table, neighbors, weight, bias, out_dtype, order)
     c_out = weight.shape[2]
     out = torch.empty((h_out, c_out), dtype=out_dtype, device=table.device)
     if act_slope is None:
@@ -118,12 +135,13 @@ def stencil_gather_matmul(table: torch.Tensor,      # (H, C_in), no sentinel row
     fn = lib.hpl_stencil_gather_matmul
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = fn(table.data_ptr(), h_in, c_in, neighbors.data_ptr(), f, h_out,
+    rc = fn(table.data_ptr(), h_in, c_in, neighbors.data_ptr(),
+            order.data_ptr(), f, h_out,
             weight.data_ptr(), c_out,
             bias.data_ptr() if bias is not None else None,
             act, slope, out.data_ptr(), _DTYPES[table.dtype],

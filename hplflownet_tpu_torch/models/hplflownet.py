@@ -23,12 +23,13 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels.stencil_plan import make_stencil_plans
 from ..lattice.offsets import filter_size, tap_negation
 from ..ops.bcl import BilateralConv
 from ..ops.corr import BilateralCorrelation
 from .layers import PointMLP
 
-__all__ = ["HPLFlowNet"]
+__all__ = ["HPLFlowNet", "stencil_plans"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
@@ -36,6 +37,30 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def _cat(*xs):
     return torch.cat(xs, dim=-1)
+
+
+def stencil_plans(scales, lists: bool = True) -> list:
+    """Per scale, the stencil plan of each neighbour table the model reads
+    (``kernels.stencil_plan``): ``pc1_blur`` and ``pc2_blur`` at every
+    scale (the decoder reuses ``pc1_blur``), ``pc1_corr`` and ``pc2_corr``
+    at the correlation scales 2..6.  Made once per pair, together
+    (:func:`make_stencil_plans`: one sort per tap count); ``lists`` as
+    there (the weight gradient's vertex lists)."""
+    names, tables = [], []
+    for s, sp in enumerate(scales):
+        h1 = sp.pc1_splat_plan.start.shape[0]
+        h2 = sp.pc2_splat_plan.start.shape[0]
+        names += [(s, "pc1_blur"), (s, "pc2_blur")]
+        tables += [(sp.pc1_blur_neighbors, h1), (sp.pc2_blur_neighbors, h2)]
+        if s >= 2:
+            names += [(s, "pc1_corr"), (s, "pc2_corr")]
+            tables += [(sp.pc1_corr_indices, h1), (sp.pc2_corr_uniq, h2)]
+    with torch.no_grad():
+        made = make_stencil_plans(tables, lists)
+    plans = [{} for _ in scales]
+    for (s, name), plan in zip(names, made):
+        plans[s][name] = plan
+    return plans
 
 
 class HPLFlowNet(nn.Module):
@@ -104,6 +129,7 @@ class HPLFlowNet(nn.Module):
         Returns the (N, 3) float32 scene flow of pc1.
         """
         dt = self.compute_dtype
+        plans = stencil_plans(scales, lists=torch.is_grad_enabled())
 
         def emg1(sp):
             return sp.pc1_el_minus_gr.to(dt)
@@ -111,48 +137,56 @@ class HPLFlowNet(nn.Module):
         feat1 = self.conv1(pc1)
         feat2 = self.conv1(pc2)
 
-        def down(mod, sp, f1, f2):
+        def down(mod, s, f1, f2):
+            sp = scales[s]
             o1 = mod(_cat(emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
                      splat_plan=sp.pc1_splat_plan,
-                     blur_neighbors=sp.pc1_blur_neighbors)
+                     blur_neighbors=sp.pc1_blur_neighbors,
+                     blur_plan=plans[s]["pc1_blur"])
             o2 = mod(_cat(sp.pc2_el_minus_gr.to(dt), f2),
                      in_barycentric=sp.pc2_barycentric,
                      splat_plan=sp.pc2_splat_plan,
-                     blur_neighbors=sp.pc2_blur_neighbors)
+                     blur_neighbors=sp.pc2_blur_neighbors,
+                     blur_plan=plans[s]["pc2_blur"])
             return o1, o2
 
-        def correlate(mod, sp, f1, f2, prev):
+        def correlate(mod, s, f1, f2, prev):
+            sp = scales[s]
             return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
                        sp.pc1_corr_indices, sp.pc2_corr_uniq,
-                       sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv)
+                       sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv,
+                       self_plan=plans[s]["pc1_corr"],
+                       cross_plan=plans[s]["pc2_corr"])
 
-        p1o1, p2o1 = down(self.bcn1, scales[0], feat1, feat2)
-        p1o2, p2o2 = down(self.bcn2, scales[1], p1o1, p2o1)
-        p1o3, p2o3 = down(self.bcn3, scales[2], p1o2, p2o2)
-        c1 = correlate(self.corr1, scales[2], p1o3, p2o3, None)
-        p1o4, p2o4 = down(self.bcn4, scales[3], p1o3, p2o3)
-        c2 = correlate(self.corr2, scales[3], p1o4, p2o4, c1)
-        p1o5, p2o5 = down(self.bcn5, scales[4], p1o4, p2o4)
-        c3 = correlate(self.corr3, scales[4], p1o5, p2o5, c2)
-        p1o6, p2o6 = down(self.bcn6, scales[5], p1o5, p2o5)
-        c4 = correlate(self.corr4, scales[5], p1o6, p2o6, c3)
-        p1o7, p2o7 = down(self.bcn7, scales[6], p1o6, p2o6)
-        c5 = correlate(self.corr5, scales[6], p1o7, p2o7, c4)
+        p1o1, p2o1 = down(self.bcn1, 0, feat1, feat2)
+        p1o2, p2o2 = down(self.bcn2, 1, p1o1, p2o1)
+        p1o3, p2o3 = down(self.bcn3, 2, p1o2, p2o2)
+        c1 = correlate(self.corr1, 2, p1o3, p2o3, None)
+        p1o4, p2o4 = down(self.bcn4, 3, p1o3, p2o3)
+        c2 = correlate(self.corr2, 3, p1o4, p2o4, c1)
+        p1o5, p2o5 = down(self.bcn5, 4, p1o4, p2o4)
+        c3 = correlate(self.corr3, 4, p1o5, p2o5, c2)
+        p1o6, p2o6 = down(self.bcn6, 5, p1o5, p2o5)
+        c4 = correlate(self.corr4, 5, p1o6, p2o6, c3)
+        p1o7, p2o7 = down(self.bcn7, 6, p1o6, p2o6)
+        c5 = correlate(self.corr5, 6, p1o7, p2o7, c4)
 
-        def up(mod, feats, sp):
+        def up(mod, feats, s):
             # blur on scale s's lattice, slice onto scale s's points
+            sp = scales[s]
             return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
                        out_barycentric=sp.pc1_barycentric,
                        out_lattice_offset=sp.pc1_lattice_offset,
-                       out_splat_plan=sp.pc1_splat_plan)
+                       out_splat_plan=sp.pc1_splat_plan,
+                       blur_plan=plans[s]["pc1_blur"])
 
-        out = up(self.bcn7_, _cat(c5, p1o7), scales[6])
-        out = up(self.bcn6_, _cat(emg1(scales[6]), out, c4, p1o6), scales[5])
-        out = up(self.bcn5_, _cat(emg1(scales[5]), out, c3, p1o5), scales[4])
-        out = up(self.bcn4_, _cat(emg1(scales[4]), out, c2, p1o4), scales[3])
-        out = up(self.bcn3_, _cat(emg1(scales[3]), out, c1, p1o3), scales[2])
-        out = up(self.bcn2_, _cat(emg1(scales[2]), out, p1o2), scales[1])
-        out = up(self.bcn1_, _cat(emg1(scales[1]), out, p1o1), scales[0])
+        out = up(self.bcn7_, _cat(c5, p1o7), 6)
+        out = up(self.bcn6_, _cat(emg1(scales[6]), out, c4, p1o6), 5)
+        out = up(self.bcn5_, _cat(emg1(scales[5]), out, c3, p1o5), 4)
+        out = up(self.bcn4_, _cat(emg1(scales[4]), out, c2, p1o4), 3)
+        out = up(self.bcn3_, _cat(emg1(scales[3]), out, c1, p1o3), 2)
+        out = up(self.bcn2_, _cat(emg1(scales[2]), out, p1o2), 1)
+        out = up(self.bcn1_, _cat(emg1(scales[1]), out, p1o1), 0)
 
         res = self.conv2(out)
         res = self.conv3(res)

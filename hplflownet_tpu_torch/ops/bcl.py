@@ -14,6 +14,9 @@ gather or a deterministic kernel, never ``index_add_`` / ``scatter_add_``.
   cast fused into its epilogue.  Its input gradient is the same kernel over
   the negated-tap table with the kernel transposed (the stencil is closed
   under negation); its weight gradient goes through ``stencil_dkernel``.
+  The table's stencil plan (``kernels.stencil_plan``), made once per pair
+  by the caller, gives both kernels their row order and tap lists; the
+  input gradient reuses the forward's row order.
 * ``slice_to_points``: each point's d+1 vertices, barycentric-weighted;
   absent vertices (id -1) get weight zero.  Its adjoint is an unnormalised
   splat of the cotangent through the same plan (``rank_reduce``).
@@ -36,6 +39,7 @@ from ..device import device_constant, scalar
 from ..kernels import backward_like_forward, plain_forced
 from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
+from ..kernels.stencil_plan import StencilPlan
 from .segment import ReducePlan, _wr_forward, weighted_reduce
 
 __all__ = ["splat", "blur", "slice_to_points", "BilateralConv",
@@ -101,12 +105,13 @@ class _Blur(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, splatted_pad, neighbors, kernel, bias, act_slope,
-                out_dtype, tap_negation):
+                out_dtype, tap_negation, plan):
         ctx.plain_kernels = plain_forced()
         y = stencil_gather_matmul(splatted_pad[1:].contiguous(),
                                   neighbors.contiguous(), kernel.contiguous(),
                                   bias=bias, act_slope=act_slope,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, plan=plan)
+        ctx.plan = plan
         ctx.act_slope = act_slope
         ctx.tap_negation = tap_negation
         ctx.has_bias = bias is not None
@@ -129,15 +134,16 @@ class _Blur(torch.autograd.Function):
             # the negated tap: the transpose is the same stencil
             d_sp = stencil_gather_matmul(
                 gc, neighbors[neg].contiguous(),
-                kernel.transpose(1, 2).contiguous(), out_dtype=dt)
+                kernel.transpose(1, 2).contiguous(), out_dtype=dt,
+                plan=ctx.plan)
             d_pad = torch.cat([d_sp.new_zeros(1, d_sp.shape[1]), d_sp])
         if ctx.needs_input_grad[2]:
             d_kernel = stencil_dkernel(splatted_pad[1:].contiguous(),
-                                       neighbors.contiguous(), gc
+                                       neighbors.contiguous(), gc, ctx.plan
                                        ).to(kernel.dtype)
         if ctx.has_bias and ctx.needs_input_grad[3]:
             d_bias = gp.to(torch.float32).sum(dim=0)
-        return d_pad, None, d_kernel, d_bias, None, None, None
+        return d_pad, None, d_kernel, d_bias, None, None, None, None
 
 
 def blur(splatted_pad: torch.Tensor,   # (H + 1, C_in), row 0 zero
@@ -146,14 +152,17 @@ def blur(splatted_pad: torch.Tensor,   # (H + 1, C_in), row 0 zero
          bias: torch.Tensor | None,    # (C_out,) f32
          act_slope: float | None,
          out_dtype: torch.dtype,
-         tap_negation: Sequence[int] | None = None) -> torch.Tensor:
+         tap_negation: Sequence[int] | None = None,
+         plan: StencilPlan | None = None) -> torch.Tensor:
     """act(stencil conv + bias) over the lattice -> (H, C_out).
 
     ``tap_negation`` (lattice.offsets.tap_negation of the stencil) is what
-    the input gradient needs; the forward does not read it.
+    the input gradient needs; the forward does not read it.  ``plan`` is
+    the stencil plan of ``neighbors`` over H rows (made by the kernels from
+    the table when it is None).
     """
     return _Blur.apply(splatted_pad, neighbors, kernel, bias, act_slope,
-                       out_dtype, tap_negation)
+                       out_dtype, tap_negation, plan)
 
 
 def _slice_impl(blurred, bary, offsets):
@@ -256,7 +265,8 @@ class BilateralConv(nn.Module):
                 in_barycentric=None, splat_plan: ReducePlan | None = None,
                 blur_neighbors=None, out_barycentric=None,
                 out_lattice_offset=None,
-                out_splat_plan: ReducePlan | None = None) -> torch.Tensor:
+                out_splat_plan: ReducePlan | None = None,
+                blur_plan: StencilPlan | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         c = features.shape[-1]
         if self.do_splat:
@@ -272,7 +282,7 @@ class BilateralConv(nn.Module):
         else:
             slope = None
         x = blur(splatted_pad, blur_neighbors, self.conv0_kernel.to(dt),
-                 self.conv0_bias, slope, dt, self.tap_negation)
+                 self.conv0_bias, slope, dt, self.tap_negation, blur_plan)
 
         for i in range(1, len(self.widths)):
             x = (dense(x, getattr(self, f"conv{i}_kernel"), dt)

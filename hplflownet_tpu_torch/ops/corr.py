@@ -21,6 +21,9 @@ Backward, scatter-free as in JAX:
   ``z = g @ k2^T`` gives every tap's table, and ``stencil_tap_tables_sum``
   gathers them through the inverse map ``uniq_inv``; the weight gradient
   goes through ``stencil_dkernel`` over the 65 unique taps.
+
+Each index table's stencil plan (``kernels.stencil_plan``), made once per
+pair by the caller, gives the kernels their row order and tap lists.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch import nn
 from ..kernels import backward_like_forward, plain_forced
 from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
+from ..kernels.stencil_plan import StencilPlan
 from ..kernels.tap_tables import stencil_tap_tables_sum
 from .bcl import _negation_index, activation, dense, splat
 from .segment import ReducePlan, apply_reduce_plan
@@ -81,13 +85,15 @@ class _CorrSelf(torch.autograd.Function):
     """``corr_self`` of the JAX package (corr.py:71-129)."""
 
     @staticmethod
-    def forward(ctx, table_pad, indices, k_self, bias, tap_negation):
+    def forward(ctx, table_pad, indices, k_self, bias, tap_negation, plan):
         ctx.plain_kernels = plain_forced()
         ctx.tap_negation = tap_negation
+        ctx.plan = plan
         ctx.save_for_backward(table_pad, indices, k_self)
         return stencil_gather_matmul(table_pad[1:].contiguous(),
                                      indices.contiguous(),
-                                     k_self.contiguous(), bias=bias)
+                                     k_self.contiguous(), bias=bias,
+                                     plan=plan)
 
     @staticmethod
     @backward_like_forward
@@ -102,14 +108,16 @@ class _CorrSelf(torch.autograd.Function):
             neg = _negation_index(ctx.tap_negation, indices.device)
             d_rows = stencil_gather_matmul(
                 gc, indices[neg].contiguous(),
-                k_self.transpose(1, 2).contiguous().to(dt), out_dtype=dt)
+                k_self.transpose(1, 2).contiguous().to(dt), out_dtype=dt,
+                plan=ctx.plan)
             d_table = torch.cat([d_rows.new_zeros(1, d_rows.shape[1]), d_rows])
         if ctx.needs_input_grad[2]:
             d_k = stencil_dkernel(table_pad[1:].contiguous(),
-                                  indices.contiguous(), gc).to(k_self.dtype)
+                                  indices.contiguous(), gc,
+                                  ctx.plan).to(k_self.dtype)
         if ctx.needs_input_grad[3]:
             d_bias = g.to(torch.float32).sum(dim=0)
-        return d_table, None, d_k, d_bias, None
+        return d_table, None, d_k, d_bias, None, None
 
 
 def corr_self(table_pad: torch.Tensor,   # (H1 + 1, C), row 0 zero
@@ -117,13 +125,15 @@ def corr_self(table_pad: torch.Tensor,   # (H1 + 1, C), row 0 zero
               k_self: torch.Tensor,      # (Cc, C, W)
               bias: torch.Tensor,        # (W,) f32, fused into the epilogue
               tap_negation: Sequence[int] | None = None,
+              plan: StencilPlan | None = None,   # of indices over H1 rows
               ) -> torch.Tensor:
     """sum_k table_pad[indices[k] + 1] @ k_self[k] + bias -> (H1, W) f32.
 
     ``tap_negation`` (of the correlation stencil) is what the input gradient
     needs; the forward does not read it.
     """
-    return _CorrSelf.apply(table_pad, indices, k_self, bias, tap_negation)
+    return _CorrSelf.apply(table_pad, indices, k_self, bias, tap_negation,
+                           plan)
 
 
 class _CorrCross(torch.autograd.Function):
@@ -131,14 +141,16 @@ class _CorrCross(torch.autograd.Function):
     adjoint."""
 
     @staticmethod
-    def forward(ctx, pad2, uniq_idx, k2, uniq_inv):
+    def forward(ctx, pad2, uniq_idx, k2, uniq_inv, plan):
         ctx.plain_kernels = plain_forced()
         u, c, f, w = k2.shape
         ctx.uniq_inv = uniq_inv
+        ctx.plan = plan
         ctx.save_for_backward(pad2, uniq_idx, k2)
         flat = stencil_gather_matmul(pad2[1:].contiguous(),
                                      uniq_idx.contiguous(),
-                                     k2.reshape(u, c, f * w).contiguous())
+                                     k2.reshape(u, c, f * w).contiguous(),
+                                     plan=plan)
         return flat.reshape(flat.shape[0], f, w)
 
     @staticmethod
@@ -161,21 +173,22 @@ class _CorrCross(torch.autograd.Function):
             d_pad2 = torch.cat([d_rows.new_zeros(1, c), d_rows]).to(dt)
         if ctx.needs_input_grad[2]:
             d_k2 = stencil_dkernel(pad2[1:].contiguous(), uniq_idx.contiguous(),
-                                   g_flat).reshape(u, c, f, w).to(k2.dtype)
-        return d_pad2, None, d_k2, None
+                                   g_flat, ctx.plan).reshape(u, c, f, w).to(k2.dtype)
+        return d_pad2, None, d_k2, None, None
 
 
 def corr_cross(pad2: torch.Tensor,       # (H2 + 1, C)
                uniq_idx: torch.Tensor,   # (U, H1) unique-offset index rows
                k2: torch.Tensor,         # (U, C, F, W) folded kernel
                uniq_inv: torch.Tensor | None = None,  # (U, H2) adjoint map
+               plan: StencilPlan | None = None,  # of uniq_idx over H2 rows
                ) -> torch.Tensor:
     """cross[h, f, w] = sum_u pad2[uniq_idx[u, h] + 1] @ k2[u] -> (H1, F, W).
 
     ``uniq_inv`` (the lattice build's ``pc2_corr_uniq_inv``) is what the
     gradient of ``pad2`` needs; the forward does not read it.
     """
-    return _CorrCross.apply(pad2, uniq_idx, k2, uniq_inv)
+    return _CorrCross.apply(pad2, uniq_idx, k2, uniq_inv, plan)
 
 
 def fold_cross_kernel(k_cross: torch.Tensor,   # (Cc, C, W)
@@ -245,6 +258,8 @@ class BilateralCorrelation(nn.Module):
                 pc2_corr_uniq: torch.Tensor,      # (U, H1)
                 pc2_corr_inverse: torch.Tensor,   # (F, Cc) -> u
                 pc2_corr_uniq_inv: torch.Tensor | None = None,  # (U, H2)
+                self_plan: StencilPlan | None = None,   # of pc1_corr_indices
+                cross_plan: StencilPlan | None = None,  # of pc2_corr_uniq
                 ) -> torch.Tensor:
         dt = self.compute_dtype
         f32 = torch.float32
@@ -266,10 +281,11 @@ class BilateralCorrelation(nn.Module):
         k_self = self.corr0_kernel[:, :self.self_dim, :].to(dt)
         k_cross = self.corr0_kernel[:, self.self_dim:, :]
         a_self = corr_self(combined1, pc1_corr_indices, k_self,
-                           self.corr0_bias, self.corr_tap_negation)
+                           self.corr0_bias, self.corr_tap_negation, self_plan)
         k2 = fold_cross_kernel(k_cross, pc2_corr_inverse,
                                pc2_corr_uniq.shape[0], dt)
-        cross = corr_cross(pad2, pc2_corr_uniq, k2, pc2_corr_uniq_inv)
+        cross = corr_cross(pad2, pc2_corr_uniq, k2, pc2_corr_uniq_inv,
+                           cross_plan)
         y = activation(a_self[:, None, :] + cross, self.use_leaky)  # (H1, F, W)
 
         h1, nf, _ = y.shape

@@ -33,8 +33,8 @@ import torch
 
 from .tools.timing import CAPACITIES, SFM7, card_line, time_ms
 
-_GROUPS = (("stencil_gather_matmul", ("stencil_bf16_kernel", "stencil_f32_kernel")),
-           ("stencil_dkernel", ("dkernel_bf16", "dkernel_f32", "sum_slabs")),
+_GROUPS = (("stencil_gather_matmul", ("stencil_wgmma_kernel", "stencil_f32_kernel")),
+           ("stencil_dkernel", ("dkernel_wgmma", "dkernel_f32", "sum_slabs")),
            ("stencil_tap_tables_sum", ("tap_tables_kernel",)),
            ("blocked_rank_reduce", ("blocked_rank_reduce_kernel",)),
            ("rank_reduce", ("rank_reduce_kernel",)),

@@ -9,7 +9,8 @@ Port of ``tools/microbench.py``.  On a real pyramid of one synthetic
 from a seeded generator, it times:
 
 * the five blur shapes of the encoder and decoder (``ops.bcl.blur``:
-  the ``stencil_gather_matmul`` kernel, float32 output);
+  the ``stencil_gather_matmul`` kernel, float32 output, the table's stencil
+  plan made beforehand, as the model does once per pair);
 * two speed-of-light GEMMs of the blur's shape (``torch.matmul`` in bf16);
 * ``gather15``: the blur's 15-tap row gather and a sum, at 68 and 580
   channels;
@@ -35,6 +36,7 @@ import sys
 import torch
 
 from ..device import resolve_device
+from ..kernels.stencil_plan import make_stencil_plan
 from ..lattice import build_pyramid
 from ..lattice.capacity import synthetic_frustum_clouds
 from ..ops import bcl, corr, segment
@@ -92,9 +94,10 @@ def run(device=None, num_points: int = NUM_POINTS, capacities=CAPACITIES,
         h = nb.shape[1]
         table, kern = randn(h + 1, c_in), randn(15, c_in, c_out)
         bias = torch.zeros(c_out, device=dev)
+        plan = make_stencil_plan(nb, h, lists=False)   # made once per pair
         bench(f"{name} ({h},{c_in}->{c_out})",
-              lambda t=table, n=nb, k=kern, b=bias: bcl.blur(
-                  t, n, k, b, None, torch.float32))
+              lambda t=table, n=nb, k=kern, b=bias, p=plan: bcl.blur(
+                  t, n, k, b, None, torch.float32, plan=p))
 
     h0 = scales[0].pc1_blur_neighbors.shape[1]
     for c_in, c_out in ((68, 64), (580, 1024)):
@@ -116,12 +119,15 @@ def run(device=None, num_points: int = NUM_POINTS, capacities=CAPACITIES,
     pad2 = randn(h2 + 1, c2)
     n_uniq = sp2.pc2_corr_uniq.shape[0]
     k2 = randn(n_uniq, c2, 15, w2)
+    cross_plan = make_stencil_plan(sp2.pc2_corr_uniq, h2, lists=False)
     bench(f"corr_cross_s2 ({n_uniq},{h2},{c2} uniq)",
-          lambda: corr.corr_cross(pad2, sp2.pc2_corr_uniq, k2))
+          lambda: corr.corr_cross(pad2, sp2.pc2_corr_uniq, k2, plan=cross_plan))
     k_self = randn(15, c2, w2)
     zero_bias = torch.zeros(w2, device=dev)
+    self_plan = make_stencil_plan(sp2.pc1_corr_indices, h2, lists=False)
     bench(f"corr_self_s2 (15,{h2},{c2}->{w2})",
-          lambda: corr.corr_self(pad2, sp2.pc1_corr_indices, k_self, zero_bias))
+          lambda: corr.corr_self(pad2, sp2.pc1_corr_indices, k_self, zero_bias,
+                                 plan=self_plan))
     bench(f"corr_gather1_s2 (15,{h2},{c2})",
           lambda: corr.gather_rows(pad2, sp2.pc1_corr_indices).sum(0))
     plan = segment.make_reduce_plan(sp2.pc1_corr_indices, h2)

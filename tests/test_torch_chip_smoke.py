@@ -40,8 +40,14 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     cs = small_cpu_smoke
     results = {}
     cs.phase_kernels(results)
-    assert len(results["stencil"]) == 10 and len(results["reduce"]) == 8
-    assert len(results["dkernel"]) == 6 and len(results["tap_tables"]) == 2
+    assert len(results["stencil"]) == 14 and len(results["reduce"]) == 8
+    assert len(results["dkernel"]) == 10 and len(results["tap_tables"]) == 2
+    # every stencil case reports its plan's block coverage, and the bf16
+    # cases their targets against the library call
+    assert all(0 < r["coverage"] <= r["coverage_natural"] <= 1
+               for r in results["stencil"])
+    assert [t["case"] for t in results["targets"]] == [
+        c for _, c, _ in cs.TARGETS]
     assert len(results["fused"]) == 6 and len(results["take"]) == 2
     assert len(results["partial"]) == 2
     cs.phase_reference()
@@ -83,5 +89,7 @@ def test_fused_and_tools_phases_run_on_the_cpu(small_cpu_smoke, monkeypatch):
         "pair": {"default": 2, "fused": 2}, "step": {"default": 2, "fused": 2}}
     small_cpu_smoke.phase_tools(results)
     assert results["tools_launches"] == {"row_take": 0, "rank_partial": 0}
+    small_cpu_smoke.phase_plans(results)       # counted on a card only
+    assert results["plans"]["kernels_forward"] is None
     assert [t["tool"] for t in results["tools"].values()] == [
         "microbench", "gather_lab", "rank_partial_lab"]

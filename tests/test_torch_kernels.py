@@ -37,6 +37,7 @@ from hplflownet_tpu_torch.kernels.dkernel import (stencil_dkernel,
 from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
 from hplflownet_tpu_torch.kernels.stencil import (stencil_gather_matmul,
                                                   stencil_gather_matmul_plain)
+from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
 from hplflownet_tpu_torch.kernels.tap_tables import (
     stencil_tap_tables_sum, stencil_tap_tables_sum_plain)
 
@@ -124,14 +125,20 @@ def test_tap_tables_sum_plain_matches_pallas_interpret():
 
 
 def test_dkernel_vertex_splits_cover_the_vertices_in_fixed_chunks():
-    # the flagship's three weight-gradient shapes and a tiny one
-    for f, c_in, c_out, h in ((15, 580, 1024, 25600), (15, 128, 32, 12928),
-                              (65, 64, 480, 12928), (15, 20, 8, 100)):
+    # the flagship's weight-gradient shapes (the decoder blurs at scales 0,
+    # 1 and 2, the encoder blur, both correlations) and a tiny one: chunks
+    # of whole 64-entry stages that cover a list of H_out entries
+    for f, c_in, c_out, h in ((15, 580, 1024, 25600), (15, 324, 512, 31872),
+                              (15, 388, 256, 12928), (15, 68, 64, 25600),
+                              (15, 128, 32, 12928), (65, 64, 480, 12928),
+                              (15, 20, 8, 100)):
         splits, chunk = vertex_splits(f, c_in, c_out, h)
-        assert chunk % 32 == 0 and splits * chunk >= h > (splits - 1) * chunk
+        assert chunk % 64 == 0 and splits * chunk >= h > (splits - 1) * chunk
         assert vertex_splits(f, c_in, c_out, h) == (splits, chunk)
-    assert vertex_splits(15, 580, 1024, 25600)[0] == 1    # 2400 tiles: enough
-    assert vertex_splits(15, 128, 32, 12928)[0] > 1       # 30 tiles: split
+    assert vertex_splits(15, 580, 1024, 25600)[0] == 1    # 600 tiles: enough
+    assert vertex_splits(15, 128, 32, 12928)[0] > 1       # 15 tiles: split
+    # no chunk shorter than 4 stages
+    assert vertex_splits(15, 128, 32, 12928)[1] >= 256
 
 
 def _runs(same):
@@ -510,16 +517,23 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
     rng = np.random.RandomState(0)
-    table, nb, kern = _mk(rng, 3000, 15, 68, 64, 40)
     dev = torch.device("cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        t = torch.from_numpy(table).to(dev, dt)
-        k = torch.from_numpy(kern).to(dev, dt)
+    # the stencil at C_out 64 (n64 tiles) and 200 (n128, ragged), with the
+    # plan's row order, and bit for bit on a rerun
+    for c_in, c_out in ((68, 64), (100, 200)):
+        table, nb, kern = _mk(rng, 3000, 15, c_in, c_out, 40)
         n = torch.from_numpy(nb).to(dev)
-        bias = torch.linspace(-1, 1, 64, device=dev)
-        got = stencil_gather_matmul(t, n, k, bias=bias, act_slope=0.1)
-        want = stencil_gather_matmul_plain(t, n, k, bias=bias, act_slope=0.1)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        plan = make_stencil_plan(n, 3000)
+        for dt in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(table).to(dev, dt)
+            k = torch.from_numpy(kern).to(dev, dt)
+            bias = torch.linspace(-1, 1, c_out, device=dev)
+            got = stencil_gather_matmul(t, n, k, bias=bias, act_slope=0.1,
+                                        plan=plan)
+            assert torch.equal(got, stencil_gather_matmul(
+                t, n, k, bias=bias, act_slope=0.1, plan=plan))
+            want = stencil_gather_matmul_plain(t, n, k, bias=bias, act_slope=0.1)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     g = torch.randn(4000, 72, device=dev)
     rid = torch.randint(0, 4, (4000,), device=dev, dtype=torch.int32)
     cuts = torch.sort(torch.randint(0, 4000, (999,), device=dev)).values
@@ -534,11 +548,12 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
     for f, h, c_in, c_out in ((15, 3000, 128, 32), (15, 3000, 68, 200)):
         table, nb, _ = _mk(rng, h, f, c_in, 0, 40)
         cot = torch.randn(h, c_out, device=dev)
+        n = torch.from_numpy(nb).to(dev)
+        plan = make_stencil_plan(n, h)
         for dt in (torch.float32, torch.bfloat16):
             t = torch.from_numpy(table).to(dev, dt)
-            n = torch.from_numpy(nb).to(dev)
-            got = stencil_dkernel(t, n, cot.to(dt))
-            assert torch.equal(got, stencil_dkernel(t, n, cot.to(dt)))
+            got = stencil_dkernel(t, n, cot.to(dt), plan)
+            assert torch.equal(got, stencil_dkernel(t, n, cot.to(dt), plan))
             want = stencil_dkernel_plain(t, n, cot.to(dt))
             torch.testing.assert_close(got, want, rtol=1e-4,
                                        atol=1e-4 * float(want.abs().max()))
