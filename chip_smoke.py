@@ -16,8 +16,14 @@ Phases, each printing a line with its elapsed seconds:
             tables' stencil plans) also "gather + matmul" (the spread's
             materialisation with the GEMM), TFLOP/s over present taps, the
             plan's block coverage, reruns bit for bit, and each bf16 target
-            against the library call; nvidia-smi samples SM clock, power
-            and temperature meanwhile;
+            against the library call; the segmented sums (kernels 2, 5
+            and 7) also give ``device_ms``, the mean of a replayed CUDA
+            graph of 20 calls (their per-call ``ms`` near 0.05 ms is the
+            wrapper's host time), and kernels 5 and 7 run the edge-case
+            streams of ``hplflownet_tpu_torch.tools.rank_cases`` (kernel 5
+            bit for bit against ``rank_reduce`` where the stream is a
+            rank-mode plan); nvidia-smi samples SM clock, power and
+            temperature meanwhile;
 4. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
             tests/data/torch_port_ref_n64.npz, and the float32 train step's
@@ -100,6 +106,37 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     the host clock in a CPU rehearsal)."""
     from hplflownet_tpu_torch.tools.timing import time_ms
     return time_ms(fn, DEVICE, reps, warmup)
+
+
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
+
+
+def device_ms(fn) -> float:
+    """Mean device time of one ``fn()`` call: CUDA events around replays of
+    a CUDA graph of GRAPH_CALLS captured calls, so the wrapper's host time
+    drops out (the host clock in a CPU rehearsal)."""
+    import torch
+    if DEVICE != "cuda":
+        return cuda_ms(fn, reps=2, warmup=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (GRAPH_REPLAYS * GRAPH_CALLS)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -433,6 +470,8 @@ def phase_kernels(results):
             # float32 run sums of a few bf16/f32 products vs the float64 prefix
             err = max_err(got, want, 1e-4, 1e-5, f"rank_reduce {name} {dtn}")
             ms = cuda_ms(lambda: rank_reduce(g, rid, plan.start, plan.end, c, with_w))
+            dms = device_ms(lambda: rank_reduce(g, rid, plan.start, plan.end, c,
+                                                with_w))
             plain_ms = cuda_ms(lambda: rank_reduce_plain(
                 g, rid, plan.start, plan.end, c, with_w), reps=3)
             # yardstick: index_add_ of the already-weighted stream by vertex id
@@ -453,13 +492,13 @@ def phase_kernels(results):
             bms, by = bound_ms(nbytes, flops, "float32")
             row = dict(case=name, dtype=dtn,
                        shape=f"M={g.shape[0]} C={c} R={r} T={t_out}",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=lib_ms)
+                       max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=lib_ms)
             reduce_rows.append(row)
             log(f"rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-                f"bound {bms:.4f} ms ({by})")
+                f"{ms:.4f} ms per call, {dms:.4f} ms device, plain {plain_ms:.4f} "
+                f"ms, index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     reduce_rows.extend(_plain_row_cases(scales, randn))
     results["dkernel"] = _dkernel_cases(scales, randn)
     results["tap_tables"] = _tap_tables_cases(scales, randn)
@@ -469,6 +508,8 @@ def phase_kernels(results):
     results["take"] = _take_cases(scales, gen)
     results["partial"] = _partial_cases(gen)
     results["targets"] = target_rows(results)
+    log(f"device_ms of kernels 2, 5 and 7: a CUDA graph of {GRAPH_CALLS} "
+        f"calls, {GRAPH_REPLAYS} replays")
     for t in results["targets"]:
         log(f"target {t['case']} (bf16): kernel {t['ms']:.4f} ms vs "
             f"{t['factor']:g} x library {t['library_ms']:.4f} ms: "
@@ -505,6 +546,7 @@ def _plain_row_cases(scales, randn) -> list:
             raise AssertionError(f"rank_reduce R = 0 {dtn}: rerun differs")
         err = max_err(got, want, 1e-4, 1e-5, f"rank_reduce R = 0 {dtn}")
         ms = cuda_ms(lambda: rank_reduce(g, None, plan.start, plan.end, c))
+        dms = device_ms(lambda: rank_reduce(g, None, plan.start, plan.end, c))
         plain_ms = cuda_ms(lambda: rank_reduce_plain(
             g, None, plan.start, plan.end, c), reps=3)
         keep = plan.ids >= 0
@@ -514,26 +556,55 @@ def _plain_row_cases(scales, randn) -> list:
         bms, by = bound_ms(nbytes, float(entries * c), "float32")
         row = dict(case="gather_rows adjoint R=0", dtype=dtn,
                    shape=f"M={g.shape[0]} C={c} R=0 T={h2}", max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=lib_ms)
+                   ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms)
         rows.append(row)
         log(f"rank_reduce gather_rows adjoint (R = 0) {dtn} [{row['shape']}]: "
             f"max_abs_err {err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"kernel {ms:.4f} ms per call, {dms:.4f} ms device, plain "
+            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
     return rows
+
+
+def _fused_check(name, dtn, g, meta, start_rows, c, r, with_w, t, runs):
+    """``blocked_rank_reduce`` (kernel 5) on one stream: a rerun bit for
+    bit, the padding rows zero, the plain version within atol 1e-4 + rtol
+    1e-5, and, where ``runs`` gives the same stream's rank-mode runs (rid,
+    start, end), ``rank_reduce`` bit for bit.  -> (output, max abs error)"""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_fused import (
+        blocked_rank_reduce, blocked_rank_reduce_plain)
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce
+    what = f"blocked_rank_reduce {name} {dtn}"
+    got = blocked_rank_reduce(g, meta, start_rows, c, r, with_w)
+    again = blocked_rank_reduce(g, meta, start_rows, c, r, with_w)
+    want = blocked_rank_reduce_plain(g, meta, start_rows, c, r, with_w)
+    other = rank_reduce(g, *runs, c, with_w) if runs is not None else None
+    sync()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: rerun differs")
+    if other is not None and not torch.equal(got[:t], other):
+        raise AssertionError(f"{what}: not bit-equal to rank_reduce")
+    if bool(got[t:].any()):
+        raise AssertionError(f"{what}: padding rows not zero")
+    # float32 run sums of a few bf16/f32 products vs the float64 prefix
+    return got, max_err(got, want, 1e-4, 1e-5, what)
 
 
 def _fused_cases(scales, randn) -> list:
     """``blocked_rank_reduce`` (kernel 5) at the fused route's shapes: the
     scale-2 splat with densities, the decoder's slice adjoint, and plain
     rows (R = 0); each against its plain version and, bit for bit, against
-    ``rank_reduce`` on the same stream."""
+    ``rank_reduce`` on the same stream; then the edge cases of
+    ``tools.rank_cases`` (long runs, empty blocks, unordered and
+    out-of-range entries, odd pitches, R 0-4)."""
     import torch
     from hplflownet_tpu_torch.kernels.rank_fused import (
         blocked_rank_reduce, blocked_rank_reduce_plain)
     from hplflownet_tpu_torch.kernels.splat import rank_reduce
     from hplflownet_tpu_torch.ops.segment import rank_fused_args
+    from hplflownet_tpu_torch.tools.rank_cases import fused_cases, to_torch
     rows = []
     for name, si, n_pts, c, with_w, weighted in (
             ("scale-2 splat (bcn3)", 2, CAPACITIES[1], 68, True, True),
@@ -549,29 +620,19 @@ def _fused_cases(scales, randn) -> list:
         t = plan.start.shape[0]
         entries = int((plan.end - plan.start).clamp(min=0).sum())
         feats32 = randn(n_pts, c)
+        runs = (rid if weighted else None, plan.start, plan.end)
         for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             src = feats32.to(dt)
             if weighted:
                 src = torch.cat([src, sp.pc1_barycentric.to(dt)], 1)
             g = src[perm // r].contiguous()
-            got = blocked_rank_reduce(g, meta, start_rows, c, r_k, with_w)
-            again = blocked_rank_reduce(g, meta, start_rows, c, r_k, with_w)
-            want = blocked_rank_reduce_plain(g, meta, start_rows, c, r_k, with_w)
-            other = rank_reduce(g, rid if weighted else None, plan.start,
-                                plan.end, c, with_w)
-            sync()
-            if not torch.equal(got, again):
-                raise AssertionError(f"blocked_rank_reduce {name} {dtn}: "
-                                     "rerun differs")
-            if not torch.equal(got[:t], other):
-                raise AssertionError(f"blocked_rank_reduce {name} {dtn}: not "
-                                     "bit-equal to rank_reduce")
-            if bool(got[t:].any()):
-                raise AssertionError(f"blocked_rank_reduce {name}: padding "
-                                     "rows not zero")
-            err = max_err(got, want, 1e-4, 1e-5, f"blocked_rank_reduce {name} {dtn}")
-            ms = cuda_ms(lambda: blocked_rank_reduce(g, meta, start_rows, c,
-                                                     r_k, with_w))
+            got, err = _fused_check(name, dtn, g, meta, start_rows, c, r_k,
+                                    with_w, t, runs)
+
+            def kern():
+                return blocked_rank_reduce(g, meta, start_rows, c, r_k, with_w)
+            ms, dms = cuda_ms(kern), device_ms(kern)
+            rr_dms = device_ms(lambda: rank_reduce(g, *runs, c, with_w))
             plain_ms = cuda_ms(lambda: blocked_rank_reduce_plain(
                 g, meta, start_rows, c, r_k, with_w), reps=3)
             if weighted:
@@ -589,13 +650,44 @@ def _fused_cases(scales, randn) -> list:
             bms, by = bound_ms(nbytes, flops, "float32")
             row = dict(case=name, dtype=dtn,
                        shape=f"M={g.shape[0]} C={c} R={r_k} T={t}",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=lib_ms)
+                       max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                       rank_reduce_device_ms=rr_dms)
             rows.append(row)
             log(f"blocked_rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun and rank_reduce "
-                f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"bit-identical; kernel {ms:.4f} ms per call, {dms:.4f} ms "
+                f"device (rank_reduce {rr_dms:.4f} ms device), plain "
+                f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+    dev = scales[0].pc1_blur_neighbors.device
+    for case in fused_cases():
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            a = to_torch(case, dt, dev)
+            runs = ((a.get("rid"), a["start"], a["end"]) if case.rank_mode
+                    else None)
+            got, err = _fused_check(f"edge {case.name}", dtn, a["g"], a["meta"],
+                                    a["start_rows"], case.c, case.r,
+                                    case.with_weights, case.t, runs)
+
+            def kern():
+                return blocked_rank_reduce(a["g"], a["meta"], a["start_rows"],
+                                           case.c, case.r, case.with_weights)
+            ms, dms = cuda_ms(kern), device_ms(kern)
+            g = a["g"]
+            nbytes = (g.numel() * g.element_size() + g.shape[0] * 4
+                      + a["start_rows"].numel() * 4 + got.numel() * 4)
+            bms, by = bound_ms(nbytes, 2.0 * g.shape[0] * got.shape[1], "float32")
+            row = dict(case=f"edge {case.name}", dtype=dtn,
+                       shape=f"M={g.shape[0]} C={case.c} R={case.r} T={case.t}",
+                       max_abs_err=err, ms=ms, device_ms=dms, bound_ms=bms,
+                       bound_by=by, rank_reduce_equal=runs is not None)
+            rows.append(row)
+            log(f"blocked_rank_reduce edge {case.name} {dtn} [{row['shape']}]: "
+                f"max_abs_err {err:.3e} (atol 1e-4 rtol 1e-5), rerun "
+                + ("and rank_reduce " if runs is not None else "")
+                + f"bit-identical; kernel {ms:.4f} ms per call, {dms:.4f} ms "
+                f"device, bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -632,12 +724,33 @@ def _take_cases(scales, gen) -> list:
     return rows
 
 
-def _partial_cases(gen) -> list:
-    """``rank_partial`` (kernel 7) on the rank-partial lab's M = 128000
-    stream (bf16, C 68, R 4, densities), float32 and bf16 output."""
+def _partial_check(name, g, meta, c, r, with_w, out_dt, bo=8):
+    """``rank_partial`` (kernel 7) on one stream: a rerun bit for bit and
+    the plain version within tolerance.  -> (output, max abs error)"""
     import torch
     from hplflownet_tpu_torch.kernels.rank_partial import (rank_partial,
                                                            rank_partial_plain)
+    got = rank_partial(g, meta, c, r, with_w, bo=bo, out_dtype=out_dt)
+    again = rank_partial(g, meta, c, r, with_w, bo=bo, out_dtype=out_dt)
+    want = rank_partial_plain(g, meta, c, r, with_w, out_dtype=out_dt)
+    sync()
+    if not torch.equal(got, again):
+        raise AssertionError(f"rank_partial {name}: rerun differs")
+    # float32 sums of products in stream order vs float64; a bf16 output may
+    # then round one bf16 ulp (2^-8) apart
+    atol, rtol = (1e-4, 1e-5) if out_dt == torch.float32 else (1e-4, 8e-3)
+    return got, max_err(got, want, atol, rtol, f"rank_partial {name}")
+
+
+def _partial_cases(gen) -> list:
+    """``rank_partial`` (kernel 7) on the rank-partial lab's M = 128000
+    stream (bf16, C 68, R 4, densities), float32 and bf16 output, at 8, 16
+    and 32 blocks per CTA; then the edge cases of ``tools.rank_cases``
+    (local ranks >= 128, lanes outside [0, R), odd pitches, R 0-4)."""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_partial import (rank_partial,
+                                                           rank_partial_plain)
+    from hplflownet_tpu_torch.tools.rank_cases import partial_cases, to_torch
     from hplflownet_tpu_torch.tools.rank_partial_lab import lab_stream
     m, c, r = LAB_SIZES[0], 68, 4
     g, meta, _, lane = lab_stream(m, c, r, gen, torch.device(DEVICE))
@@ -646,31 +759,52 @@ def _partial_cases(gen) -> list:
     w_sel = torch.gather(g[:, c:], 1, lane.long()[:, None])
     sv = torch.cat([g[:, :c] * w_sel, w_sel], 1)
     rows = []
-    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        got = rank_partial(g, meta, c, r, True, out_dtype=dt)
-        again = rank_partial(g, meta, c, r, True, out_dtype=dt)
-        want = rank_partial_plain(g, meta, c, r, True, out_dtype=dt)
-        sync()
-        if not torch.equal(got, again):
-            raise AssertionError(f"rank_partial {dtn}-out: rerun differs")
-        # float32 sums of bf16 products in stream order vs float64; a bf16
-        # output may then round one bf16 ulp (2^-8) apart
-        atol, rtol = (1e-4, 1e-5) if dt == torch.float32 else (1e-4, 8e-3)
-        err = max_err(got, want, atol, rtol, f"rank_partial {dtn}-out")
-        ms = cuda_ms(lambda: rank_partial(g, meta, c, r, True, out_dtype=dt))
-        plain_ms = cuda_ms(lambda: rank_partial_plain(g, meta, c, r, True,
-                                                      out_dtype=dt), reps=3)
-        lib_ms = _index_add_ms(sv, key, got.shape[0], g.device)
-        nbytes = g.numel() * g.element_size() + m * 4 + got.numel() * got.element_size()
-        bms, by = bound_ms(nbytes, 2.0 * m * (c + 1), "float32")
-        row = dict(case="M=128000 bo=8", dtype=dtn,
-                   shape=f"M={m} C={c} R={r} out {dtn}", max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        rows.append(row)
-        log(f"rank_partial {dtn}-out [{row['shape']}]: max_abs_err {err:.3e} "
-            f"(atol {atol} rtol {rtol}), rerun bit-identical; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+    for bo in (8, 16, 32):
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            got, err = _partial_check(f"bo={bo} {dtn}-out", g, meta, c, r, True,
+                                      dt, bo)
+
+            def kern():
+                return rank_partial(g, meta, c, r, True, bo=bo, out_dtype=dt)
+            ms, dms = cuda_ms(kern), device_ms(kern)
+            plain_ms = (cuda_ms(lambda: rank_partial_plain(
+                g, meta, c, r, True, out_dtype=dt), reps=3) if bo == 8 else None)
+            lib_ms = _index_add_ms(sv, key, got.shape[0], g.device)
+            nbytes = (g.numel() * g.element_size() + m * 4
+                      + got.numel() * got.element_size())
+            bms, by = bound_ms(nbytes, 2.0 * m * (c + 1), "float32")
+            row = dict(case=f"lab bo={bo}", dtype=dtn,
+                       shape=f"M={m} C={c} R={r} out {dtn}", max_abs_err=err,
+                       ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms)
+            rows.append(row)
+            log(f"rank_partial lab bo={bo} {dtn}-out [{row['shape']}]: max_abs_err "
+                f"{err:.3e}, rerun bit-identical; kernel {ms:.4f} ms per call, "
+                f"{dms:.4f} ms device, "
+                + (f"plain {plain_ms:.4f} ms, " if plain_ms is not None else "")
+                + f"index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    for case in partial_cases():
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            a = to_torch(case, dt, g.device)
+            name = f"edge {case.name}"
+            got, err = _partial_check(f"{name} {dtn}", a["g"], a["meta"], case.c,
+                                      case.r, case.with_weights, dt)
+
+            def kern():
+                return rank_partial(a["g"], a["meta"], case.c, case.r,
+                                    case.with_weights, out_dtype=dt)
+            ms, dms = cuda_ms(kern), device_ms(kern)
+            ge = a["g"]
+            nbytes = (ge.numel() * ge.element_size() + ge.shape[0] * 4
+                      + got.numel() * got.element_size())
+            bms, by = bound_ms(nbytes, 2.0 * ge.shape[0] * got.shape[1], "float32")
+            row = dict(case=name, dtype=dtn, shape=f"M={ge.shape[0]} C={case.c} "
+                       f"R={case.r} {dtn} in and out", max_abs_err=err, ms=ms,
+                       device_ms=dms, bound_ms=bms, bound_by=by)
+            rows.append(row)
+            log(f"rank_partial {name} {dtn} [{row['shape']}]: max_abs_err "
+                f"{err:.3e}, rerun bit-identical; kernel {ms:.4f} ms per call, "
+                f"{dms:.4f} ms device, bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -1233,7 +1367,7 @@ def kernels_line(results) -> dict:
          fused, fused_fwd),
         ("row_take", "take", "gather lab", "tools/gather_experiments.py:76",
          tools, {}),
-        ("rank_partial", "partial", "M=128000", "tools/rank_partial_lab.py:110",
+        ("rank_partial", "partial", "lab bo=8", "tools/rank_partial_lab.py:110",
          tools, {}),
     ]
     out = []
@@ -1244,6 +1378,7 @@ def kernels_line(results) -> dict:
             source=f"hplflownet_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches[name],
             **{k: row[k] for k in keys},
+            **({"device_ms": row["device_ms"]} if "device_ms" in row else {}),
             shape=row["shape"] + " bf16",
             max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
             **({"launches_forward": launches_fwd[name]}

@@ -8,7 +8,9 @@
 // or, with R = 0, rank_j = meta[j] and the rows summed unweighted.  Block b
 // of 128 ranks reads the stream range [start_rows[b], start_rows[b + 1])
 // (the last block up to M), which in a rank-mode plan holds every entry of
-// its ranks.  Ranks with no entry get exact zeros.  In bf16 mode each
+// its ranks.  Ranks with no entry get exact zeros; entries whose rank lies
+// outside their block (the padding's sentinel rank 1 << 28, say) and
+// weighted entries whose lane is >= R add nothing.  In bf16 mode each
 // product is rounded to bf16 before the float32 sum, as
 // hplflownet_tpu/ops/segment.py _wr_forward does.
 //
@@ -16,15 +18,41 @@
 // body _rank_reduce_kernel :580, pallas_call :724).  The TPU kernel streams
 // two fixed windows of the sorted stream per 1024-rank super-block and folds
 // each 128-entry chunk with a one-hot MXU dot at a dynamic offset; entries
-// past the windows are dropped and counted.  Hopper needs no windows: one
-// block per 128 ranks reads exactly its own stream range, finds each rank's
-// first and last entry with integer min/max in shared memory (order-free, so
-// the result is fixed), and then one warp per rank walks that rank's entries
-// in stream order, each lane summing up to four channels per pass.  That is
-// the order csrc/rank_reduce.cu sums a run in, so on a rank-mode plan the
-// two routes agree bit for bit.  No float atomics; nothing is dropped, so
-// there is no overflow counter.  Entries whose rank lies outside the block
-// (the padding's sentinel rank, say) are skipped.
+// past the windows are dropped and counted.  Hopper needs no windows.
+//
+// Design (csrc/rank_tile.cuh holds the shared pieces).  A CTA of 256
+// threads owns a tile of 32 ranks (a quarter of a 128-rank block), so the
+// grid has 4 x ceil(T / 128) CTAs: 404 at the scale-2 splat, 800 at the
+// 1024-wide slice adjoint, three to an SM (launch bounds and a 75 KB
+// shared-memory budget).  It
+//   1. scans its block's stream range for metas of its 32 ranks, four
+//      independent loads a thread at a time, and keeps each rank's first
+//      and last entry and its count with integer min/max/add in shared
+//      memory (the lanes of one rank combine first); a rank whose count
+//      fills its first-to-last range is one contiguous run.  Order-free: a
+//      stream whose ranks are not monotone is only read more often;
+//   2. walks the span [first entry of any of its ranks, last + 1), slab by
+//      slab of at most 128 output columns, in stages of up to STAGE rows
+//      through a ring of NS shared-memory stages: whole rows whose pitch is
+//      a multiple of 16 bytes in one bulk copy (the TMA, tracked by an
+//      mbarrier), else a slab's columns and the weight lanes by cp.async
+//      row by row; each stage's metas come into registers when the stage
+//      is issued, two stages ahead.  The slab width and the stage length
+//      are chosen per launch: the fewest ring steps that fit;
+//   3. per stage, one thread per entry turns its meta into a tile-local
+//      rank (or -1) and its selected weight, once, in shared memory;
+//   4. sums: warp w owns ranks w, w + 8, w + 16, w + 24 and lane l columns
+//      l + 32 q of the slab; for a contiguous run it forms the products of
+//      four entries at a time and adds them in stream order, carrying the
+//      float32 partial sums in registers from stage to stage (a rank whose
+//      run is broken checks each entry's key).  No global load lies in
+//      this chain;
+//   5. after a slab's last stage, writes the tile (zero rows included) to
+//      shared memory and out with 16-byte stores.
+// Each output is a float32 sum from +0 in stream order with __fadd_rn, the
+// order csrc/rank_reduce.cu sums a run in, so on a rank-mode plan the two
+// routes agree bit for bit.  No float atomics; nothing is dropped, so
+// there is no overflow counter; reruns are bit-identical.
 //
 // Bound on an H100: bytes.  One multiply and one add per stream element
 // against 2-4 bytes read: the floor is the stream (M * (C + R) elements plus
@@ -38,97 +66,360 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "rank_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace rank_tile;
 
 constexpr int THREADS = 256;          // 8 warps
-constexpr int RANKS = 128;            // ranks per block
-constexpr int NACC = 4;               // channels per lane per pass
-constexpr int PASS = 32 * NACC;       // channels per pass
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float product(float a, float w) { return __fmul_rn(a, w); }
-__device__ __forceinline__ float product(bf16 a, bf16 w) {
-  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(to_f32(a), to_f32(w))));
-}
+constexpr int WARPS = THREADS / 32;
+constexpr int RANKS = 128;            // ranks per start_rows block
+constexpr int SUB = 32;               // ranks per CTA
+constexpr int KPW = SUB / WARPS;      // ranks per warp
+constexpr int STAGE = 128;            // most stream rows a stage holds
+constexpr int NS = 3;                 // ring depth: NS - 1 stages in flight
+constexpr int SMEM_PER_CTA = 75 * 1024;   // three blocks to an SM
+static_assert(SUB == 32, "the span reduction takes one rank per lane");
+static_assert(STAGE <= THREADS, "a thread per staged entry");
 
 template <bool WEIGHTED>
 __device__ __forceinline__ int rank_of(int meta) { return WEIGHTED ? (meta >> 2) : meta; }
 
-template <typename T, bool WEIGHTED>
-__global__ void __launch_bounds__(THREADS)
+// Shared-memory layout of one launch (bytes), computed on the host.
+struct Layout {
+  int sw;        // output columns per slab (32 * NQ)
+  int stage;     // stream rows per stage (STAGE, or fewer for wide rows)
+  int nslab;     // slabs of the output row
+  int whole;     // one slab holds every output column: rows staged whole
+  int flat;      // whole rows, pitch a multiple of 16: one contiguous copy
+  int woff;      // byte offset of the weight lanes in a staged row
+  int spitch;    // staged row pitch (multiple of 16)
+  int bars;      // NS stage barriers (bulk copies)
+  int keys;      // STAGE tile-local ranks (-1: none) of the stage summed
+  int ws;        // STAGE weights of the stage summed
+  int bounds;    // first[SUB], last[SUB], count[SUB], span[2]
+  int tile;      // SUB x slab float sums
+  int total;
+};
+
+template <typename T, bool WEIGHTED, int NQ>
+__global__ void __launch_bounds__(THREADS, 3)
 blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
                            const int* __restrict__ meta,
                            const int* __restrict__ start_rows, int nblk,
-                           int with_weights, float* __restrict__ out) {
-  __shared__ int s_first[RANKS];
-  __shared__ int s_last[RANKS];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int base = b * RANKS;
-  if (tid < RANKS) {
+                           int with_weights, float* __restrict__ out,
+                           Layout L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem + L.bars);
+  int* s_key = reinterpret_cast<int*>(smem + L.keys);
+  float* s_w = reinterpret_cast<float*>(smem + L.ws);
+  int* s_first = reinterpret_cast<int*>(smem + L.bounds);
+  int* s_last = s_first + SUB;
+  int* s_count = s_last + SUB;
+  int* s_span = s_count + SUB;
+  float* tile = reinterpret_cast<float*>(smem + L.tile);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r = cr - c;
+  const int c_out = c + (with_weights ? 1 : 0);
+  const int blk = blockIdx.x / (RANKS / SUB);
+  const int base = blockIdx.x * SUB;                 // first rank of the tile
+
+  if (tid < SUB) {
     s_first[tid] = INT_MAX;
     s_last[tid] = -1;
+    s_count[tid] = 0;
   }
-  int lo = start_rows[b];
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&s_bar[i], 1);
+    mbar_fence_init();
+  }
+  int lo = start_rows[blk];
   lo = lo < 0 ? 0 : (lo > m ? m : lo);
-  int hi = b + 1 < nblk ? start_rows[b + 1] : m;
+  int hi = blk + 1 < nblk ? start_rows[blk + 1] : m;
   hi = hi < lo ? lo : (hi > m ? m : hi);
   __syncthreads();
-  for (int j = lo + tid; j < hi; j += THREADS) {
-    const int k = rank_of<WEIGHTED>(meta[j]) - base;
-    if (k >= 0 && k < RANKS) {
-      atomicMin(&s_first[k], j);
-      atomicMax(&s_last[k], j);
+  // 1. each rank's first and last entry and its count in the block's range
+  //    (entries that add something: a lane >= R adds nothing); lanes of one
+  //    rank combine first (a rank's entries are usually neighbours), so one
+  //    lane of each does the shared atomics
+  for (int j0 = lo; j0 < hi; j0 += 4 * THREADS) {
+    int mj[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * THREADS + tid;
+      mj[u] = j < hi ? __ldg(meta + j) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * THREADS + tid;
+      const int k = rank_of<WEIGHTED>(mj[u]) - base;
+      const bool hit = j < hi && k >= 0 && k < SUB && (!WEIGHTED || (mj[u] & 3) < r);
+      const unsigned hits = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        const unsigned peers = __match_any_sync(hits, k);
+        if (lane == __ffs(peers) - 1) {
+          atomicMin(&s_first[k], j);
+          atomicAdd(&s_count[k], __popc(peers));
+        }
+        if (lane == 31 - __clz(peers)) atomicMax(&s_last[k], j);
+      }
     }
   }
   __syncthreads();
+  if (warp == 0) {
+    const int f = __reduce_min_sync(0xffffffffu, s_first[lane]);
+    const int l = __reduce_max_sync(0xffffffffu, s_last[lane]);
+    if (lane == 0) {                 // an empty tile: one stage of no rows
+      s_span[0] = f <= l ? f : 0;
+      s_span[1] = f <= l ? l + 1 : 0;
+    }
+  }
+  __syncthreads();
+  const int s0 = s_span[0], e0 = s_span[1];
+  const int nst = max(1, (e0 - s0 + L.stage - 1) / L.stage);   // stages per slab
+  const int nstage = nst * L.nslab;
+  int kf[KPW], kl[KPW];
+  bool contiguous[KPW];           // no other entry between first and last
+#pragma unroll
+  for (int kk = 0; kk < KPW; ++kk) {
+    const int k = warp + WARPS * kk;
+    kf[kk] = s_first[k];
+    kl[kk] = s_last[k] + 1;
+    contiguous[kk] = kl[kk] - kf[kk] == s_count[k];
+  }
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int r = cr - c;
-  const int c_out = c + (with_weights ? 1 : 0);
-  for (int k = warp; k < RANKS; k += THREADS / 32) {
-    const int rank = base + k;
-    const int s = s_first[k], e = s_last[k] + 1;    // empty: s > e
-    float* o = out + (size_t)rank * c_out;
-    for (int c0 = 0; c0 < c_out; c0 += PASS) {
-      float acc[NACC];
+  // 2. the ring: stage i holds stream rows [s0 + stage (i % nst), ...) of
+  //    slab i / nst, by one bulk copy (whole rows, pitch a multiple of 16
+  //    bytes) or by cp.async row by row; its metas come into registers, one
+  //    per thread, when it is issued
+  constexpr int ES = sizeof(T);
+  const long long pitch = (long long)cr * ES;
+  const unsigned char* gbytes = reinterpret_cast<const unsigned char*>(g);
+  const int vec_w = chunk_bytes(gbytes + (long long)c * ES, pitch);
+  auto issue = [&](int i) -> int {
+    int mj = -1;
+    if (i < nstage) {
+      const int slab = i / nst;
+      const int js = s0 + (i - slab * nst) * L.stage;
+      const int n = max(0, min(L.stage, e0 - js));
+      const int slot = i % NS;
+      unsigned char* rows = ring + slot * L.stage * L.spitch;
+      const unsigned char* src = gbytes + (long long)js * pitch;
+      if (L.flat) {
+        if (tid == 0) {
+          fence_proxy_async();
+          bulk_copy(rows, src, n * (int)pitch, &s_bar[slot]);
+        }
+      } else if (L.whole) {
+        copy_rows<THREADS>(rows, L.spitch, src, pitch, n, cr * ES,
+                           chunk_bytes(gbytes, pitch));
+      } else {
+        const int o0 = slab * L.sw;
+        const int nv = max(0, min(o0 + L.sw, c) - o0);
+        copy_rows<THREADS>(rows, L.spitch, src + (long long)o0 * ES, pitch, n,
+                           nv * ES, chunk_bytes(gbytes + (long long)o0 * ES, pitch));
+        if (WEIGHTED)
+          copy_rows<THREADS>(rows + L.woff, L.spitch, src + (long long)c * ES,
+                             pitch, n, r * ES, vec_w);
+      }
+      if (tid < n) mj = __ldg(meta + js + tid);
+    }
+    cp_async_commit();
+    return mj;
+  };
+
+  float acc[KPW][NQ];
+  int mq[NS - 1];                    // metas of the stages in flight
 #pragma unroll
-      for (int q = 0; q < NACC; ++q) acc[q] = 0.f;
-      for (int j = s; j < e; ++j) {
-        const int mj = meta[j];
-        if (rank_of<WEIGHTED>(mj) != rank) continue;
-        const T* row = g + (size_t)j * cr;
-        if (WEIGHTED) {
-          const int lane_w = mj & 3;
-          if (lane_w >= r) continue;     // the wrapper guarantees lane < R
-          const T w = row[c + lane_w];
+  for (int i = 0; i < NS - 1; ++i) mq[i] = issue(i);
+  for (int i = 0; i < nstage; ++i) {
+    cp_async_wait<NS - 2>();
+    if (L.flat) mbar_wait(&s_bar[i % NS], (i / NS) & 1);
+    __syncthreads();                 // stage i landed; stage i - 1 summed
+    const int mj = mq[0];
 #pragma unroll
-          for (int q = 0; q < NACC; ++q) {
-            const int ch = c0 + lane + 32 * q;
-            if (ch < c)
-              acc[q] = __fadd_rn(acc[q], product(row[ch], w));
-            else if (ch == c && with_weights)
-              acc[q] = __fadd_rn(acc[q], to_f32(w));
+    for (int k = 0; k < NS - 2; ++k) mq[k] = mq[k + 1];
+    mq[NS - 2] = issue(i + NS - 1);  // into stage i - 1's slot
+    const int slab = i / nst, st = i - slab * nst;
+    const int o0 = slab * L.sw;
+    const int o1 = min(o0 + L.sw, c_out);
+    const int sw = o1 - o0;                          // slab width
+    const int nv = max(0, min(o1, c) - o0);          // value columns
+    const int js = s0 + st * L.stage;
+    const int n = max(0, min(L.stage, e0 - js));
+    const unsigned char* rows = ring + (i % NS) * L.stage * L.spitch;
+    if (st == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KPW; ++kk)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) acc[kk][q] = 0.f;
+    }
+    // 3. each staged entry's tile-local rank and weight, once
+    if (tid < n) {
+      const int k = rank_of<WEIGHTED>(mj) - base;
+      bool ok = k >= 0 && k < SUB;
+      float w = 1.f;
+      if (WEIGHTED) {
+        const int ln = mj & 3;
+        ok = ok && ln < r;
+        if (ok)
+          w = to_f32(reinterpret_cast<const T*>(rows + tid * L.spitch + L.woff)[ln]);
+      }
+      s_key[tid] = ok ? k : -1;
+      s_w[tid] = w;
+    }
+    __syncthreads();
+    // 4. each owned rank's entries of this stage, in stream order: products
+    //    of a contiguous run formed four entries at a time, then added in
+    //    order
+    const int vbase = L.whole ? o0 : 0;              // slab column 0 in a row
+#pragma unroll
+    for (int kk = 0; kk < KPW; ++kk) {
+      const int k = warp + WARPS * kk;
+      const int a = max(kf[kk], js) - js, b = min(kl[kk], js + n) - js;
+      if (contiguous[kk]) {
+        int t = a;
+        for (; t + 4 <= b; t += 4) {
+          float p[4][NQ];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float w = WEIGHTED ? s_w[t + u] : 1.f;
+            const T* row = reinterpret_cast<const T*>(rows + (t + u) * L.spitch) + vbase;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              const int col = lane + 32 * q;
+              p[u][q] = col < nv ? (WEIGHTED ? product(row[col], w) : to_f32(row[col]))
+                                 : w;
+            }
           }
-        } else {
 #pragma unroll
-          for (int q = 0; q < NACC; ++q) {
-            const int ch = c0 + lane + 32 * q;
-            if (ch < c) acc[q] = __fadd_rn(acc[q], to_f32(row[ch]));
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) acc[kk][q] = __fadd_rn(acc[kk][q], p[u][q]);
+        }
+        for (; t < b; ++t) {
+          const float w = WEIGHTED ? s_w[t] : 1.f;
+          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int col = lane + 32 * q;
+            acc[kk][q] = __fadd_rn(acc[kk][q], col < nv ? (WEIGHTED ? product(row[col], w)
+                                                                    : to_f32(row[col]))
+                                                        : w);
+          }
+        }
+      } else {
+        for (int t = a; t < b; ++t) {
+          if (s_key[t] != k) continue;
+          const float w = WEIGHTED ? s_w[t] : 1.f;
+          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int col = lane + 32 * q;
+            acc[kk][q] = __fadd_rn(acc[kk][q], col < nv ? (WEIGHTED ? product(row[col], w)
+                                                                    : to_f32(row[col]))
+                                                        : w);
           }
         }
       }
+    }
+    // 5. a finished slab: the tile, zero rows included, out in 16-byte stores
+    if (st == nst - 1) {
 #pragma unroll
-      for (int q = 0; q < NACC; ++q) {
-        const int ch = c0 + lane + 32 * q;
-        if (ch < c_out) o[ch] = acc[q];
-      }
+      for (int kk = 0; kk < KPW; ++kk)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int col = lane + 32 * q;
+          if (col < sw) tile[(warp + WARPS * kk) * sw + col] = acc[kk][q];
+        }
+      __syncthreads();
+      store_tile<float, THREADS>(out + (long long)base * c_out + o0, c_out,
+                                 tile, SUB, sw);
     }
   }
+  cp_async_wait<0>();
+}
+
+Layout layout(int c_out, int c, int r, int es, int nq, int stage,
+              bool aligned16) {
+  Layout L;
+  L.sw = 32 * nq;
+  L.stage = stage;
+  const int sw = c_out < L.sw ? c_out : L.sw;
+  L.nslab = (c_out + L.sw - 1) / L.sw;
+  L.whole = L.nslab == 1;
+  L.flat = L.whole && aligned16 && ((c + r) * es) % 16 == 0;
+  if (L.whole) {                      // the row as it is: values, then lanes
+    L.woff = c * es;
+    L.spitch = round16((c + r) * es);
+  } else {                            // the slab's values, then the lanes
+    L.woff = round16(L.sw * es);
+    L.spitch = L.woff + round16(r * es);
+  }
+  L.bars = NS * stage * L.spitch;
+  L.keys = L.bars + round16(NS * 8);
+  L.ws = L.keys + stage * 4;
+  L.bounds = L.ws + stage * 4;
+  L.tile = L.bounds + round16((3 * SUB + 2) * 4);
+  L.total = L.tile + SUB * sw * 4;
+  return L;
+}
+
+// The slab width (NQ = 1..4: 32 NQ output columns) and stage length (32,
+// 64 or 128 rows) whose ring and tile leave room for three blocks on an SM
+// and that take the fewest ring steps for a tile's average span of
+// ``span`` rows (the longer stage on a tie).
+Layout choose(int c_out, int c, int r, int es, bool aligned16, int span) {
+  Layout best = layout(c_out, c, r, es, 1, 32, aligned16);
+  long long best_steps = -1;
+  for (int nq = (c_out + 31) / 32 < 4 ? (c_out + 31) / 32 : 4; nq >= 1; --nq)
+    for (int stage = STAGE; stage >= 32; stage /= 2) {
+      const Layout L = layout(c_out, c, r, es, nq, stage, aligned16);
+      const long long steps = (long long)L.nslab * ((span + stage - 1) / stage);
+      if (L.total <= SMEM_PER_CTA &&
+          (best_steps < 0 || steps < best_steps ||
+           (steps == best_steps && stage > best.stage))) {
+        best = L;
+        best_steps = steps;
+      }
+    }
+  return best;
+}
+
+template <typename T, bool WEIGHTED, int NQ>
+cudaError_t launch(const Layout& L, const void* g, int m, int cr, int c,
+                   const int* meta, const int* start_rows, int nblk,
+                   int with_weights, float* out, cudaStream_t s) {
+  if (L.total > MAX_SMEM) return cudaErrorInvalidValue;
+  static int allowed = 0;
+  const cudaError_t e = allow_smem(blocked_rank_reduce_kernel<T, WEIGHTED, NQ>,
+                                   L.total, allowed);
+  if (e != cudaSuccess) return e;
+  blocked_rank_reduce_kernel<T, WEIGHTED, NQ><<<nblk * (RANKS / SUB), THREADS,
+                                                L.total, s>>>(
+      static_cast<const T*>(g), m, cr, c, meta, start_rows, nblk, with_weights,
+      out, L);
+  return cudaGetLastError();
+}
+
+template <typename T, bool WEIGHTED>
+cudaError_t launch_nq(const void* g, int m, int cr, int c, const int* meta,
+                      const int* start_rows, int nblk, int with_weights,
+                      float* out, cudaStream_t s) {
+  const Layout L = choose(c + (with_weights ? 1 : 0), c, cr - c, (int)sizeof(T),
+                          reinterpret_cast<uintptr_t>(g) % 16 == 0,
+                          m / (nblk * (RANKS / SUB)) + 1);
+  const int nq = L.sw / 32;
+  if (nq == 1)
+    return launch<T, WEIGHTED, 1>(L, g, m, cr, c, meta, start_rows, nblk, with_weights, out, s);
+  if (nq == 2)
+    return launch<T, WEIGHTED, 2>(L, g, m, cr, c, meta, start_rows, nblk, with_weights, out, s);
+  if (nq == 3)
+    return launch<T, WEIGHTED, 3>(L, g, m, cr, c, meta, start_rows, nblk, with_weights, out, s);
+  return launch<T, WEIGHTED, 4>(L, g, m, cr, c, meta, start_rows, nblk, with_weights, out, s);
 }
 
 }  // namespace
@@ -152,23 +443,18 @@ int hpl_blocked_rank_reduce(const void* g, int m, int cr, int c,
   const int* mp = static_cast<const int*>(meta);
   const int* sr = static_cast<const int*>(start_rows);
   float* op = static_cast<float*>(out);
-  const bf16* gb = static_cast<const bf16*>(g);
-  const float* gf = static_cast<const float*>(g);
+  cudaError_t e;
   if (dtype == 1 && r > 0)
-    blocked_rank_reduce_kernel<bf16, true><<<nblk, THREADS, 0, s>>>(
-        gb, m, cr, c, mp, sr, nblk, with_weights, op);
+    e = launch_nq<bf16, true>(g, m, cr, c, mp, sr, nblk, with_weights, op, s);
   else if (dtype == 1)
-    blocked_rank_reduce_kernel<bf16, false><<<nblk, THREADS, 0, s>>>(
-        gb, m, cr, c, mp, sr, nblk, 0, op);
+    e = launch_nq<bf16, false>(g, m, cr, c, mp, sr, nblk, 0, op, s);
   else if (dtype == 0 && r > 0)
-    blocked_rank_reduce_kernel<float, true><<<nblk, THREADS, 0, s>>>(
-        gf, m, cr, c, mp, sr, nblk, with_weights, op);
+    e = launch_nq<float, true>(g, m, cr, c, mp, sr, nblk, with_weights, op, s);
   else if (dtype == 0)
-    blocked_rank_reduce_kernel<float, false><<<nblk, THREADS, 0, s>>>(
-        gf, m, cr, c, mp, sr, nblk, 0, op);
+    e = launch_nq<float, false>(g, m, cr, c, mp, sr, nblk, 0, op, s);
   else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    e = cudaErrorInvalidValue;
+  return (int)e;
 }
 
 const char* hpl_error_string(int code) {

@@ -6,26 +6,42 @@
 //
 // or, with R = 0, the rows summed unweighted.  Block b holds entries
 // [128 b, 128 b + 128); the output has ceil(M / 128) * 128 rows, and rows of
-// unused ranks are exact zeros.  Each product is rounded to the stream's
-// dtype before the float32 sum; the sums are written in float32 or rounded
-// once to bfloat16.
+// unused ranks are exact zeros.  A local rank >= 128 is dropped; a lane
+// outside [0, R) selects weight 0, so its entry adds nothing.  Each product
+// is rounded to the stream's dtype before the float32 sum; the sums are
+// written in float32 or rounded once to bfloat16.
 //
 // Replaces: tools/rank_partial_lab.py variant (:110; body _v2_kernel :74,
 // pallas_call :121), the TPU lab's variants of blocked_rank_partial (one
 // one-hot MXU dot per 128-entry block, bo blocks per program, optional
-// bf16 output).  On Hopper a block of 256 threads takes bo consecutive
-// 128-entry blocks (bo is the launch's blocks-per-CTA knob, the lab's
-// sweep); for each, the first and last entry of every local rank are found
-// with integer min/max in shared memory, then one warp per rank walks its
-// entries in stream order, each lane summing up to four channels per pass.
-// No float atomics, so a rerun matches bit for bit.  The TPU variant's
-// vec_prepass (weighted rows of a whole program block computed before the
-// rank dots) has no counterpart: each warp forms its own entries' products
-// as it sums them.
+// bf16 output).  The TPU variant's vec_prepass (weighted rows of a whole
+// program block computed before the rank dots) has no counterpart: the
+// products are formed as they are summed.
+//
+// Design (csrc/rank_tile.cuh holds the shared pieces).  A CTA of 1024
+// threads takes bo consecutive 128-entry blocks (bo is the launch's
+// blocks-per-CTA knob, the lab's sweep) of one slab of at most 128 output
+// columns.  Each block is one stage of a ring of NS shared-memory stages
+// (whole rows in one bulk copy tracked by an mbarrier where the pitch is a
+// multiple of 16 bytes, else cp.async row by row; the metas into registers
+// two blocks ahead), so blocks k + 1 and k + 2 load while block k is summed
+// and stored.  Per block:
+//   1. one thread per entry turns its meta into a local rank (or -1) and
+//      its selected weight, once, and keeps each rank's first and last
+//      entry and count with integer min/max/add in shared memory (two
+//      sets, alternating, so the next block's are reset while this one's
+//      are read);
+//   2. warp w owns local ranks w, w + 32, w + 64, w + 96 and lane l columns
+//      l + 32 q: it adds each rank's entries in stream order (the products
+//      of a contiguous run four at a time) into a tile of float sums in
+//      shared memory, zeros for unused ranks;
+//   3. the whole 128-row tile goes out in 16-byte stores, rounded to the
+//      output dtype.
+// No float atomics, so a rerun matches bit for bit.
 //
 // Bound on an H100: bytes.  The floor is the stream (M * (C + R) elements
 // and M metas) in and M_pad * (C + 1) sums out at 3.35 TB/s; the output,
-// mostly zero rows, is the larger part.
+// zero rows included, is the larger part.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see hplflownet_tpu_torch/kernels/_build.py).
@@ -35,108 +51,290 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "rank_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace rank_tile;
 
-constexpr int THREADS = 256;          // 8 warps
+constexpr int THREADS = 1024;         // 32 warps
+constexpr int WARPS = THREADS / 32;
 constexpr int BLOCK = 128;            // stream entries (and ranks) per block
-constexpr int NACC = 4;               // channels per lane per pass
-constexpr int PASS = 32 * NACC;       // channels per pass
+constexpr int KPW = BLOCK / WARPS;    // ranks per warp
+constexpr int NS = 3;                 // ring depth: NS - 1 blocks in flight
+constexpr int SMEM_BUDGET = 200 * 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+struct Layout {
+  int sw;        // output columns per slab (32 * NQ)
+  int whole;     // one slab holds every output column: rows staged whole
+  int flat;      // whole rows, pitch a multiple of 16: one contiguous copy
+  int woff;      // byte offset of the weight lanes in a staged row
+  int spitch;    // staged row pitch (multiple of 16)
+  int bars;      // NS stage barriers (bulk copies)
+  int keys;      // BLOCK local ranks (-1: none) of the block summed
+  int ws;        // BLOCK weights of the block summed
+  int bounds;    // first[2][BLOCK], last[2][BLOCK], count[2][BLOCK]
+  int tile;      // BLOCK x slab float sums
+  int total;
+};
 
-__device__ __forceinline__ float product(float a, float w) { return __fmul_rn(a, w); }
-__device__ __forceinline__ float product(bf16 a, bf16 w) {
-  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(to_f32(a), to_f32(w))));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <typename T, typename O, bool WEIGHTED>
+template <typename T, typename O, bool WEIGHTED, int NQ>
 __global__ void __launch_bounds__(THREADS)
 rank_partial_kernel(const T* __restrict__ g, int m, int cr, int c,
                     const int* __restrict__ meta, int nblocks, int bo,
-                    int with_weights, O* __restrict__ out) {
-  __shared__ int s_first[BLOCK];
-  __shared__ int s_last[BLOCK];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+                    int with_weights, O* __restrict__ out, Layout L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem + L.bars);
+  int* s_key = reinterpret_cast<int*>(smem + L.keys);
+  float* s_w = reinterpret_cast<float*>(smem + L.ws);
+  int* s_first = reinterpret_cast<int*>(smem + L.bounds);   // [2][BLOCK]
+  int* s_last = s_first + 2 * BLOCK;                         // [2][BLOCK]
+  int* s_count = s_last + 2 * BLOCK;                         // [2][BLOCK]
+  float* tile = reinterpret_cast<float*>(smem + L.tile);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r = cr - c;
   const int c_out = c + (with_weights ? 1 : 0);
-  for (int bb = 0; bb < bo; ++bb) {
-    const int blk = blockIdx.x * bo + bb;
-    if (blk >= nblocks) break;                   // uniform over the block
-    const int e0 = blk * BLOCK;
-    if (tid < BLOCK) {
-      s_first[tid] = INT_MAX;
-      s_last[tid] = -1;
+  const int b0 = blockIdx.x * bo;
+  const int nb = min(bo, nblocks - b0);
+  const int o0 = blockIdx.y * L.sw;
+  const int o1 = min(o0 + L.sw, c_out);
+  const int sw = o1 - o0;
+  const int nv = max(0, min(o1, c) - o0);
+  const int vbase = L.whole ? o0 : 0;                // slab column 0 in a row
+
+  constexpr int ES = sizeof(T);
+  const long long pitch = (long long)cr * ES;
+  const unsigned char* gbytes = reinterpret_cast<const unsigned char*>(g);
+  const int vec_v = chunk_bytes(gbytes + (L.whole ? 0 : (long long)o0 * ES), pitch);
+  const int vec_w = chunk_bytes(gbytes + (long long)c * ES, pitch);
+  auto issue = [&](int i) -> int {
+    int mj = 0xFFFF;                 // no entry: a local rank past the block
+    if (i < nb) {
+      const int js = (b0 + i) * BLOCK;
+      const int n = min(BLOCK, m - js);
+      const int slot = i % NS;
+      unsigned char* rows = ring + slot * BLOCK * L.spitch;
+      const unsigned char* src = gbytes + (long long)js * pitch;
+      if (L.flat) {
+        if (tid == 0) {
+          fence_proxy_async();
+          bulk_copy(rows, src, n * (int)pitch, &s_bar[slot]);
+        }
+      } else if (L.whole) {
+        copy_rows<THREADS>(rows, L.spitch, src, pitch, n, cr * ES, vec_v);
+      } else {
+        copy_rows<THREADS>(rows, L.spitch, src + (long long)o0 * ES, pitch, n,
+                           nv * ES, vec_v);
+        if (WEIGHTED)
+          copy_rows<THREADS>(rows + L.woff, L.spitch, src + (long long)c * ES,
+                             pitch, n, r * ES, vec_w);
+      }
+      if (tid < n) mj = __ldg(meta + js + tid);
     }
-    __syncthreads();
-    if (tid < BLOCK && e0 + tid < m) {
-      const int k = meta[e0 + tid] & 0xFFFF;
-      if (k < BLOCK) {
-        atomicMin(&s_first[k], e0 + tid);
-        atomicMax(&s_last[k], e0 + tid);
+    cp_async_commit();
+    return mj;
+  };
+
+  if (tid < BLOCK) {
+    s_first[tid] = INT_MAX;
+    s_last[tid] = -1;
+    s_count[tid] = 0;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&s_bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int mq[NS - 1];                    // metas of the blocks in flight
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) mq[i] = issue(i);
+  for (int i = 0; i < nb; ++i) {
+    cp_async_wait<NS - 2>();
+    if (L.flat) mbar_wait(&s_bar[i % NS], (i / NS) & 1);
+    __syncthreads();                 // block i landed; block i - 1 stored
+    const int mj = mq[0];
+#pragma unroll
+    for (int k = 0; k < NS - 2; ++k) mq[k] = mq[k + 1];
+    mq[NS - 2] = issue(i + NS - 1);  // into block i - 1's slot
+    const int slot = i % NS;
+    const int set = i & 1;
+    const int js = (b0 + i) * BLOCK;
+    const int n = min(BLOCK, m - js);
+    const unsigned char* rows = ring + slot * BLOCK * L.spitch;
+    int* first = s_first + set * BLOCK;
+    int* last = s_last + set * BLOCK;
+    int* count = s_count + set * BLOCK;
+    // 1. each entry's local rank and weight, once; each rank's first and
+    //    last entry and count (lanes of one rank combine first)
+    if (tid < BLOCK) {
+      s_first[(set ^ 1) * BLOCK + tid] = INT_MAX;    // the next block's set
+      s_last[(set ^ 1) * BLOCK + tid] = -1;
+      s_count[(set ^ 1) * BLOCK + tid] = 0;
+      const int k = mj & 0xFFFF;
+      bool ok = k < BLOCK;
+      float w = 1.f;
+      if (WEIGHTED) {
+        const int ln = mj >> 16;
+        ok = ok && ln >= 0 && ln < r;
+        if (ok)
+          w = to_f32(reinterpret_cast<const T*>(rows + tid * L.spitch + L.woff)[ln]);
+      }
+      s_key[tid] = ok ? k : -1;
+      s_w[tid] = w;
+      const unsigned oks = __ballot_sync(0xffffffffu, ok);
+      if (ok) {
+        const unsigned peers = __match_any_sync(oks, k);
+        if (lane == __ffs(peers) - 1) {
+          atomicMin(&first[k], tid);
+          atomicAdd(&count[k], __popc(peers));
+        }
+        if (lane == 31 - __clz(peers)) atomicMax(&last[k], tid);
       }
     }
     __syncthreads();
-    for (int k = warp; k < BLOCK; k += THREADS / 32) {
-      const int s = s_first[k], e = s_last[k] + 1;   // empty: s > e
-      O* o = out + (size_t)(e0 + k) * c_out;
-      for (int c0 = 0; c0 < c_out; c0 += PASS) {
-        float acc[NACC];
+    // 2. each owned rank's sums in stream order into the tile: products of
+    //    a contiguous run formed four entries at a time, then added in order
+#pragma unroll 2
+    for (int kk = 0; kk < KPW; ++kk) {
+      const int k = warp + WARPS * kk;
+      const int a = first[k], b = last[k] + 1;     // empty: a > b
+      float acc[NQ];
 #pragma unroll
-        for (int q = 0; q < NACC; ++q) acc[q] = 0.f;
-        for (int j = s; j < e; ++j) {
-          const int mj = meta[j];
-          if ((mj & 0xFFFF) != k) continue;
-          const T* row = g + (size_t)j * cr;
-          if (WEIGHTED) {
-            const int lane_w = mj >> 16;
-            if (lane_w < 0 || lane_w >= r) continue;   // selects weight 0
-            const T w = row[c + lane_w];
+      for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+      if (b - a == count[k]) {                     // a contiguous run
+        int t = a;
+        for (; t + 4 <= b; t += 4) {
+          float p[4][NQ];
 #pragma unroll
-            for (int q = 0; q < NACC; ++q) {
-              const int ch = c0 + lane + 32 * q;
-              if (ch < c)
-                acc[q] = __fadd_rn(acc[q], product(row[ch], w));
-              else if (ch == c && with_weights)
-                acc[q] = __fadd_rn(acc[q], to_f32(w));
-            }
-          } else {
+          for (int u = 0; u < 4; ++u) {
+            const float w = WEIGHTED ? s_w[t + u] : 1.f;
+            const T* row = reinterpret_cast<const T*>(rows + (t + u) * L.spitch) + vbase;
 #pragma unroll
-            for (int q = 0; q < NACC; ++q) {
-              const int ch = c0 + lane + 32 * q;
-              if (ch < c) acc[q] = __fadd_rn(acc[q], to_f32(row[ch]));
+            for (int q = 0; q < NQ; ++q) {
+              const int col = lane + 32 * q;
+              p[u][q] = col < nv ? (WEIGHTED ? product(row[col], w) : to_f32(row[col]))
+                                 : w;
             }
           }
-        }
 #pragma unroll
-        for (int q = 0; q < NACC; ++q) {
-          const int ch = c0 + lane + 32 * q;
-          if (ch < c_out) store(o + ch, acc[q]);
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) acc[q] = __fadd_rn(acc[q], p[u][q]);
+        }
+        for (; t < b; ++t) {
+          const float w = WEIGHTED ? s_w[t] : 1.f;
+          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int col = lane + 32 * q;
+            acc[q] = __fadd_rn(acc[q], col < nv ? (WEIGHTED ? product(row[col], w)
+                                                            : to_f32(row[col]))
+                                                : w);
+          }
+        }
+      } else {
+        for (int t = a; t < b; ++t) {
+          if (s_key[t] != k) continue;
+          const float w = WEIGHTED ? s_w[t] : 1.f;
+          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int col = lane + 32 * q;
+            acc[q] = __fadd_rn(acc[q], col < nv ? (WEIGHTED ? product(row[col], w)
+                                                            : to_f32(row[col]))
+                                                : w);
+          }
         }
       }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int col = lane + 32 * q;
+        if (col < sw) tile[k * sw + col] = acc[q];
+      }
     }
-    __syncthreads();                             // s_first is reused
+    __syncthreads();
+    // 3. the block's rows out in 16-byte stores
+    store_tile<O, THREADS>(out + (long long)js * c_out + o0, c_out, tile,
+                           BLOCK, sw);
   }
+  cp_async_wait<0>();
+}
+
+Layout layout(int c_out, int c, int r, int es, int nq, bool aligned16) {
+  Layout L;
+  L.sw = 32 * nq;
+  const int sw = c_out < L.sw ? c_out : L.sw;
+  L.whole = c_out <= L.sw;
+  L.flat = L.whole && aligned16 && ((c + r) * es) % 16 == 0;
+  if (L.whole) {                      // the row as it is: values, then lanes
+    L.woff = c * es;
+    L.spitch = round16((c + r) * es);
+  } else {                            // the slab's values, then the lanes
+    L.woff = round16(L.sw * es);
+    L.spitch = L.woff + round16(r * es);
+  }
+  L.bars = NS * BLOCK * L.spitch;
+  L.keys = L.bars + round16(NS * 8);
+  L.ws = L.keys + BLOCK * 4;
+  L.bounds = L.ws + BLOCK * 4;
+  L.tile = L.bounds + 6 * BLOCK * 4;
+  L.total = L.tile + BLOCK * sw * 4;
+  return L;
+}
+
+template <typename T, typename O, bool WEIGHTED, int NQ>
+cudaError_t launch(const void* g, int m, int cr, int c, const int* meta,
+                   int nblocks, int bo, int with_weights, void* out,
+                   cudaStream_t s) {
+  const int c_out = c + (with_weights ? 1 : 0);
+  const Layout L = layout(c_out, c, cr - c, (int)sizeof(T), NQ,
+                          reinterpret_cast<uintptr_t>(g) % 16 == 0);
+  if (L.total > MAX_SMEM) return cudaErrorInvalidValue;
+  static int allowed = 0;
+  const cudaError_t e = allow_smem(rank_partial_kernel<T, O, WEIGHTED, NQ>,
+                                   L.total, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((nblocks + bo - 1) / bo, (c_out + L.sw - 1) / L.sw);
+  rank_partial_kernel<T, O, WEIGHTED, NQ><<<grid, THREADS, L.total, s>>>(
+      static_cast<const T*>(g), m, cr, c, meta, nblocks, bo, with_weights,
+      static_cast<O*>(out), L);
+  return cudaGetLastError();
+}
+
+// The widest slab (NQ = 1..4, 32 NQ output columns) whose stages and tile
+// fit the shared-memory budget.
+template <typename T>
+int pick_nq(int c_out, int c, int r) {
+  int nq = (c_out + 31) / 32;
+  nq = nq > 4 ? 4 : nq;
+  while (nq > 1 && layout(c_out, c, r, (int)sizeof(T), nq, true).total > SMEM_BUDGET)
+    --nq;
+  return nq;
+}
+
+template <typename T, typename O, bool WEIGHTED>
+cudaError_t launch_nq(const void* g, int m, int cr, int c, const int* meta,
+                      int nblocks, int bo, int with_weights, void* out,
+                      cudaStream_t s) {
+  const int nq = pick_nq<T>(c + (with_weights ? 1 : 0), c, cr - c);
+  if (nq == 1)
+    return launch<T, O, WEIGHTED, 1>(g, m, cr, c, meta, nblocks, bo, with_weights, out, s);
+  if (nq == 2)
+    return launch<T, O, WEIGHTED, 2>(g, m, cr, c, meta, nblocks, bo, with_weights, out, s);
+  if (nq == 3)
+    return launch<T, O, WEIGHTED, 3>(g, m, cr, c, meta, nblocks, bo, with_weights, out, s);
+  return launch<T, O, WEIGHTED, 4>(g, m, cr, c, meta, nblocks, bo, with_weights, out, s);
 }
 
 template <typename T, typename O>
-void launch(const void* g, int m, int cr, int c, const int* meta, int nblocks,
-            int bo, int with_weights, void* out, cudaStream_t s) {
-  const int grid = (nblocks + bo - 1) / bo;
+cudaError_t launch_w(const void* g, int m, int cr, int c, const int* meta,
+                     int nblocks, int bo, int with_weights, void* out,
+                     cudaStream_t s) {
   if (cr > c)
-    rank_partial_kernel<T, O, true><<<grid, THREADS, 0, s>>>(
-        static_cast<const T*>(g), m, cr, c, meta, nblocks, bo, with_weights,
-        static_cast<O*>(out));
-  else
-    rank_partial_kernel<T, O, false><<<grid, THREADS, 0, s>>>(
-        static_cast<const T*>(g), m, cr, c, meta, nblocks, bo, 0,
-        static_cast<O*>(out));
+    return launch_nq<T, O, true>(g, m, cr, c, meta, nblocks, bo, with_weights, out, s);
+  return launch_nq<T, O, false>(g, m, cr, c, meta, nblocks, bo, 0, out, s);
 }
 
 }  // namespace
@@ -156,17 +354,18 @@ int hpl_rank_partial(const void* g, int m, int cr, int c, const void* meta,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mp = static_cast<const int*>(meta);
+  cudaError_t e;
   if (dtype == 1 && out_dtype == 0)
-    launch<bf16, float>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
+    e = launch_w<bf16, float>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
   else if (dtype == 1 && out_dtype == 1)
-    launch<bf16, bf16>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
+    e = launch_w<bf16, bf16>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
   else if (dtype == 0 && out_dtype == 0)
-    launch<float, float>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
+    e = launch_w<float, float>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
   else if (dtype == 0 && out_dtype == 1)
-    launch<float, bf16>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
+    e = launch_w<float, bf16>(g, m, cr, c, mp, nblocks, bo, with_weights, out, s);
   else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    e = cudaErrorInvalidValue;
+  return (int)e;
 }
 
 const char* hpl_error_string(int code) {

@@ -9,7 +9,9 @@ seconds, not the minutes of ``torch.utils.cpp_extension``.
 
 Every pointer and the CUDA stream cross the boundary as ``ctypes.c_void_p``
 (a bare Python int would be cut to 32 bits).  Each C entry point launches
-on the caller's stream and returns ``cudaGetLastError()``.
+on the caller's stream and returns ``cudaGetLastError()``.  :func:`entry`
+sets an entry point's argument and return types once per loaded library,
+so a wrapper's call costs one ctypes call on the host.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "find_nvcc", "build", "load"]
+__all__ = ["SOURCES", "find_nvcc", "build", "load", "entry", "check"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,6 +37,8 @@ _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _LIBS: dict = {}
+_ENTRIES: dict = {}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def find_nvcc() -> str:
@@ -108,10 +112,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+def entry(name: str, symbol: str, args: str):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, returning
+    an int, with its argument types set from ``args`` (one letter each:
+    ``p`` a pointer or the stream, ``i`` an int, ``f`` a float) the first
+    time it is asked for."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[a] for a in args]
+        _ENTRIES[name, symbol] = fn
+    return fn
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise if a C entry point of ``csrc/<name>.cu`` returned a CUDA error
+    code."""
     if rc != 0:
-        lib.hpl_error_string.restype = ctypes.c_char_p
-        lib.hpl_error_string.argtypes = [ctypes.c_int]
-        msg = lib.hpl_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        fn = load(name).hpl_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what}: CUDA error {rc} ({fn(rc).decode()})")

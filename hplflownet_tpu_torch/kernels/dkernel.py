@@ -14,12 +14,10 @@ it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 from .stencil_plan import StencilPlan, make_stencil_plan
 
 __all__ = ["stencil_dkernel", "stencil_dkernel_plain", "vertex_splits"]
@@ -126,15 +124,7 @@ def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
     splits, chunk = vertex_splits(f, c_in, c_out, h_out)
     partial = (torch.empty((splits, f, c_in, c_out), dtype=torch.float32,
                            device=table.device) if splits > 1 else None)
-    lib = load("stencil_dkernel")
-    fn = lib.hpl_stencil_dkernel
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = entry("stencil_dkernel", "hpl_stencil_dkernel", "piipppiipiiippip")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = fn(table.data_ptr(), h_in, c_in, plan.verts.data_ptr(),
             plan.rows.data_ptr(), plan.counts.data_ptr(), f,
@@ -142,7 +132,7 @@ def stencil_dkernel(table: torch.Tensor,      # (H, C_in), no sentinel row
             g.data_ptr(), c_out, chunk, splits,
             partial.data_ptr() if partial is not None else None,
             out.data_ptr(), _DTYPES[table.dtype], stream)
-    check(lib, rc, "stencil_dkernel launch")
+    check("stencil_dkernel", rc, "stencil_dkernel launch")
     stencil_dkernel.launches += 1
     return out
 

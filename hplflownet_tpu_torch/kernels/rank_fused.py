@@ -14,23 +14,25 @@ Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``blocked_rank_reduce``
 (:648; ``pallas_call`` :724, body ``_rank_reduce_kernel`` :580) without its
 TPU windows: every entry of a block's range is read, so nothing is dropped
 and there is no overflow counter.  On CUDA tensors the wrapper launches
-``csrc/blocked_rank_reduce.cu``; on CPU tensors it runs
-:func:`blocked_rank_reduce_plain`.
+``csrc/blocked_rank_reduce.cu`` (tiles of 32 ranks, slabs of at most 128
+columns, the stream staged through shared memory at most ``STAGE_ROWS``
+rows at a time, a rank's partial sums carried across stages); on CPU
+tensors it runs :func:`blocked_rank_reduce_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 from .splat import segment_sums64, stream_products
 
-__all__ = ["blocked_rank_reduce", "blocked_rank_reduce_plain", "RANKS"]
+__all__ = ["blocked_rank_reduce", "blocked_rank_reduce_plain", "RANKS",
+           "STAGE_ROWS"]
 
 RANKS = 128                      # ranks per block of the output
+STAGE_ROWS = 128                 # most stream rows a shared-memory stage holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,17 +105,11 @@ def blocked_rank_reduce(g: torch.Tensor,           # (M, C + R) sorted stream
     nblk = start_rows.shape[0]
     out = torch.empty((nblk * RANKS, c + int(with_weights)),
                       dtype=torch.float32, device=g.device)
-    lib = load("blocked_rank_reduce")
-    fn = lib.hpl_blocked_rank_reduce
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = entry("blocked_rank_reduce", "hpl_blocked_rank_reduce", "piiippiipip")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = fn(g.data_ptr(), m, cr, c, meta.data_ptr(), start_rows.data_ptr(),
             nblk, int(with_weights), out.data_ptr(), _DTYPES[g.dtype], stream)
-    check(lib, rc, "blocked_rank_reduce launch")
+    check("blocked_rank_reduce", rc, "blocked_rank_reduce launch")
     blocked_rank_reduce.launches += 1
     return out
 

@@ -12,20 +12,19 @@ is the function of ``hplflownet_tpu/ops/pallas_stencil.py``
 
 Replaces ``tools/rank_partial_lab.py`` ``variant`` (:110; ``pallas_call``
 :121, body ``_v2_kernel`` :74).  ``bo``, the lab's blocks-per-program sweep,
-is the number of 128-entry blocks each CUDA block takes.  The variant's
-``vec_prepass`` has no counterpart: each warp forms its entries' products
-as it sums them.  On CUDA tensors the wrapper launches
+is the number of 128-entry blocks each CUDA block takes; each block is one
+stage of a shared-memory ring, so the next blocks load while one is summed
+and stored.  The variant's ``vec_prepass`` has no counterpart: the
+products are formed as they are summed.  On CUDA tensors the wrapper launches
 ``csrc/rank_partial.cu``; on CPU tensors it runs :func:`rank_partial_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 from .splat import segment_sums64, stream_products
 
 __all__ = ["rank_partial", "rank_partial_plain", "BLOCK"]
@@ -84,17 +83,11 @@ def rank_partial(g: torch.Tensor,      # (M, C + R) sorted stream
     m, cr = g.shape
     out = torch.empty((-(-m // BLOCK) * BLOCK, c + int(with_weights)),
                       dtype=out_dtype, device=g.device)
-    lib = load("rank_partial")
-    fn = lib.hpl_rank_partial
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = entry("rank_partial", "hpl_rank_partial", "piiipiipiip")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = fn(g.data_ptr(), m, cr, c, meta.data_ptr(), bo, int(with_weights),
             out.data_ptr(), _DTYPES[g.dtype], _DTYPES[out_dtype], stream)
-    check(lib, rc, "rank_partial launch")
+    check("rank_partial", rc, "rank_partial launch")
     rank_partial.launches += 1
     return out
 

@@ -18,12 +18,10 @@ segmented sum.  On CUDA tensors the wrapper launches
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 
 __all__ = ["rank_reduce", "rank_reduce_plain", "stream_products",
            "segment_sums64"]
@@ -127,18 +125,12 @@ def rank_reduce(g: torch.Tensor,       # (M, C + R) sorted stream
     t = start.shape[0]
     out = torch.empty((t, c + int(with_weights)), dtype=torch.float32,
                       device=g.device)
-    lib = load("rank_reduce")
-    fn = lib.hpl_rank_reduce
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = entry("rank_reduce", "hpl_rank_reduce", "piiipppiipip")
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = fn(g.data_ptr(), m, cr, c, None if rid is None else rid.data_ptr(),
             start.data_ptr(), end.data_ptr(), t, int(with_weights),
             out.data_ptr(), _DTYPES[g.dtype], stream)
-    check(lib, rc, "rank_reduce launch")
+    check("rank_reduce", rc, "rank_reduce launch")
     rank_reduce.launches += 1
     return out
 

@@ -13,12 +13,10 @@ its bound on the card (operations) and what its design does about it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 from .stencil_plan import StencilPlan, make_stencil_plan
 
 __all__ = ["stencil_gather_matmul", "stencil_gather_matmul_plain",
@@ -131,14 +129,7 @@ def stencil_gather_matmul(table: torch.Tensor,      # (H, C_in), no sentinel row
         act, slope = 1, 0.0
     else:
         act, slope = 2, float(act_slope)
-    lib = load("stencil_gather_matmul")
-    fn = lib.hpl_stencil_gather_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = entry("stencil_gather_matmul", "hpl_stencil_gather_matmul", "piippiipipifpiip")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = fn(table.data_ptr(), h_in, c_in, neighbors.data_ptr(),
             order.data_ptr(), f, h_out,
@@ -146,7 +137,7 @@ def stencil_gather_matmul(table: torch.Tensor,      # (H, C_in), no sentinel row
             bias.data_ptr() if bias is not None else None,
             act, slope, out.data_ptr(), _DTYPES[table.dtype],
             _DTYPES[out_dtype], stream)
-    check(lib, rc, "stencil_gather_matmul launch")
+    check("stencil_gather_matmul", rc, "stencil_gather_matmul launch")
     stencil_gather_matmul.launches += 1
     return out
 

@@ -10,12 +10,10 @@ nearest row, in both versions.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 
 __all__ = ["row_take", "row_take_plain"]
 
@@ -53,16 +51,11 @@ def row_take(table: torch.Tensor,    # (rows, C)
     rows, c = table.shape
     n = idx.shape[0]
     out = torch.empty((n, c), dtype=table.dtype, device=table.device)
-    lib = load("row_take")
-    fn = lib.hpl_row_take
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn = entry("row_take", "hpl_row_take", "piipipp")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = fn(table.data_ptr(), rows, c * table.element_size(), idx.data_ptr(),
             n, out.data_ptr(), stream)
-    check(lib, rc, "row_take launch")
+    check("row_take", rc, "row_take launch")
     row_take.launches += 1
     return out
 

@@ -11,12 +11,10 @@ any C (no 128-lane padding) and writes no per-group partial planes.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import plain_forced
-from ._build import check, load
+from ._build import check, entry
 
 __all__ = ["stencil_tap_tables_sum", "stencil_tap_tables_sum_plain"]
 
@@ -64,16 +62,11 @@ def stencil_tap_tables_sum(tables: torch.Tensor,     # (H, F * C) tap-major
     _check_args(tables, c, neighbors)
     f, h_out = neighbors.shape
     out = torch.empty((h_out, c), dtype=torch.float32, device=tables.device)
-    lib = load("stencil_tap_tables_sum")
-    fn = lib.hpl_stencil_tap_tables_sum
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn = entry("stencil_tap_tables_sum", "hpl_stencil_tap_tables_sum", "piipiipip")
     stream = torch.cuda.current_stream(tables.device).cuda_stream
     rc = fn(tables.data_ptr(), tables.shape[0], c, neighbors.data_ptr(), f,
             h_out, out.data_ptr(), _DTYPES[tables.dtype], stream)
-    check(lib, rc, "stencil_tap_tables_sum launch")
+    check("stencil_tap_tables_sum", rc, "stencil_tap_tables_sum launch")
     stencil_tap_tables_sum.launches += 1
     return out
 

@@ -6,8 +6,10 @@
 * ``gather_lab``        gather strategies at ``bcn1``'s table, and the
                         ``row_take`` kernel against ``index_select``;
 * ``rank_partial_lab``  the ``rank_partial`` kernel's blocks-per-CTA sweep,
-                        beside ``rank_reduce`` and ``blocked_rank_reduce``.
+                        beside ``rank_reduce`` and ``blocked_rank_reduce``;
+* ``rank_cases``        seeded edge-case streams for ``blocked_rank_reduce``
+                        and ``rank_partial`` (a module, not a tool).
 
-Each runs on the CUDA card unless given ``--device cpu`` (toy runs: host
-clock, no device number) and prints one JSON line last.
+Each tool runs on the CUDA card unless given ``--device cpu`` (toy runs:
+host clock, no device number) and prints one JSON line last.
 """

@@ -48,8 +48,15 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
                for r in results["stencil"])
     assert [t["case"] for t in results["targets"]] == [
         c for _, c, _ in cs.TARGETS]
-    assert len(results["fused"]) == 6 and len(results["take"]) == 2
-    assert len(results["partial"]) == 2
+    # kernels 5 and 7: the path's shapes (kernel 7 at bo 8, 16 and 32) and
+    # every edge case of tools.rank_cases in both dtypes; kernels 2, 5 and
+    # 7 give device_ms beside ms, and kernel 5 rank_reduce's on its streams
+    assert len(results["fused"]) == 6 + 9 * 2 and len(results["take"]) == 2
+    assert len(results["partial"]) == 6 + 7 * 2
+    assert sum(r["case"].startswith("edge ") for r in results["fused"]) == 18
+    for kind in ("reduce", "fused", "partial"):
+        assert all(r["device_ms"] > 0 and r["ms"] > 0 for r in results[kind])
+    assert all(r["rank_reduce_device_ms"] > 0 for r in results["fused"][:6])
     cs.phase_reference()
     results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)))
     results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
@@ -61,6 +68,9 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     assert [k["name"] for k in line["kernels"]] == KERNELS
     for k in line["kernels"]:
         assert KEYS <= set(k)
+        assert ("device_ms" in k) == (k["name"] in ("rank_reduce",
+                                                    "blocked_rank_reduce",
+                                                    "rank_partial"))
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
         assert k["launches"] > 0
 

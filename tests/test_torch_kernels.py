@@ -592,3 +592,30 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
                 rank_partial(gd, pmeta, 68, 4, True, bo=16, out_dtype=out_dt),
                 rank_partial_plain(gd, pmeta, 68, 4, True, out_dtype=out_dt),
                 rtol=8e-3, atol=1e-4)
+    # the edge-case streams of tools.rank_cases: reruns bit for bit, the
+    # plain versions within tolerance, kernel 5 bit for bit against
+    # rank_reduce on the rank-mode plans
+    from hplflownet_tpu_torch.tools.rank_cases import (fused_cases,
+                                                       partial_cases, to_torch)
+    for case in fused_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            a = to_torch(case, dt, dev)
+            args = (a["g"], a["meta"], a["start_rows"], case.c, case.r,
+                    case.with_weights)
+            got = blocked_rank_reduce(*args)
+            assert torch.equal(got, blocked_rank_reduce(*args)), case.name
+            torch.testing.assert_close(got, blocked_rank_reduce_plain(*args),
+                                       rtol=1e-5, atol=1e-4)
+            if case.rank_mode:
+                assert torch.equal(got[:case.t], rank_reduce(
+                    a["g"], a.get("rid"), a["start"], a["end"], case.c,
+                    case.with_weights)), case.name
+    for case in partial_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            a = to_torch(case, dt, dev)
+            args = (a["g"], a["meta"], case.c, case.r, case.with_weights)
+            got = rank_partial(*args, out_dtype=dt)
+            assert torch.equal(got, rank_partial(*args, out_dtype=dt)), case.name
+            torch.testing.assert_close(
+                got, rank_partial_plain(*args, out_dtype=dt),
+                rtol=1e-5 if dt == torch.float32 else 8e-3, atol=1e-4)
