@@ -19,7 +19,10 @@ Phases, each printing a line with its elapsed seconds:
             against the library call; the segmented sums (kernels 2, 5
             and 7) also give ``device_ms``, the mean of a replayed CUDA
             graph of 20 calls (their per-call ``ms`` near 0.05 ms is the
-            wrapper's host time), and kernels 5 and 7 run the edge-case
+            wrapper's host time), beside the same for their ``index_add_``
+            yardstick, with the device-time targets of kernels 5 and 7
+            against it (and against ``rank_reduce``, and kernel 7's bo 32
+            against its bo 8), and kernels 5 and 7 run the edge-case
             streams of ``hplflownet_tpu_torch.tools.rank_cases`` (kernel 5
             bit for bit against ``rank_reduce`` where the stream is a
             rank-mode plan); nvidia-smi samples SM clock, power and
@@ -484,8 +487,7 @@ def phase_kernels(results):
             keep = ids >= 0
             sv, ids = sv[keep].contiguous(), ids[keep].contiguous()
             t_out = plan.start.shape[0]
-            lib_ms = cuda_ms(lambda: torch.zeros(t_out, got.shape[1], device=dev)
-                             .index_add_(0, ids, sv))
+            lib_ms, lib_dms = _index_add_ms(sv, ids, t_out, dev)
             nbytes = (entries * g.shape[1] * g.element_size() + entries * 4
                       + 2 * t_out * 4 + got.numel() * 4)
             flops = 2.0 * entries * got.shape[1]
@@ -493,12 +495,14 @@ def phase_kernels(results):
             row = dict(case=name, dtype=dtn,
                        shape=f"M={g.shape[0]} C={c} R={r} T={t_out}",
                        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                       bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                       library_device_ms=lib_dms)
             reduce_rows.append(row)
             log(f"rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; kernel "
                 f"{ms:.4f} ms per call, {dms:.4f} ms device, plain {plain_ms:.4f} "
-                f"ms, index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"ms, index_add_ {lib_ms:.4f} ms per call, {lib_dms:.4f} ms "
+                f"device, bound {bms:.4f} ms ({by})")
     reduce_rows.extend(_plain_row_cases(scales, randn))
     results["dkernel"] = _dkernel_cases(scales, randn)
     results["tap_tables"] = _tap_tables_cases(scales, randn)
@@ -508,20 +512,56 @@ def phase_kernels(results):
     results["take"] = _take_cases(scales, gen)
     results["partial"] = _partial_cases(gen)
     results["targets"] = target_rows(results)
-    log(f"device_ms of kernels 2, 5 and 7: a CUDA graph of {GRAPH_CALLS} "
-        f"calls, {GRAPH_REPLAYS} replays")
+    results["rank_targets"] = rank_target_rows(results)
+    log(f"device_ms of kernels 2, 5 and 7 and of their index_add_ yardstick: "
+        f"a CUDA graph of {GRAPH_CALLS} calls, {GRAPH_REPLAYS} replays")
     for t in results["targets"]:
         log(f"target {t['case']} (bf16): kernel {t['ms']:.4f} ms vs "
             f"{t['factor']:g} x library {t['library_ms']:.4f} ms: "
             f"{'met' if t['met'] else 'MISSED'}")
+    for t in results["rank_targets"]:
+        log(f"target {t['kernel']} {t['case']} {t['dtype']}: device_ms "
+            f"{t['device_ms']:.4f} vs {t['factor']:g} x {t['against']} "
+            f"{t['yardstick_ms']:.4f} ms: {'met' if t['met'] else 'MISSED'}")
 
 
-def _index_add_ms(sv, ids, n_out, dev) -> float:
-    """Yardstick: one ``index_add_`` of the rows of ``sv`` by ``ids``."""
+def _index_add_ms(sv, ids, n_out, dev) -> tuple:
+    """Yardstick: one ``index_add_`` of the rows of ``sv`` by ``ids`` into
+    zeros.  -> (ms per call, device_ms), timed as the kernels are."""
     import torch
     sv, ids = sv.float().contiguous(), ids.long().contiguous()
-    return cuda_ms(lambda: torch.zeros(n_out, sv.shape[1], device=dev)
-                   .index_add_(0, ids, sv))
+
+    def call():
+        return torch.zeros(n_out, sv.shape[1], device=dev).index_add_(0, ids, sv)
+    return cuda_ms(call), device_ms(call)
+
+
+def rank_target_rows(results) -> list:
+    """The device-time targets of kernels 5 and 7, each against a yardstick
+    timed the same way (a replayed CUDA graph): kernel 5's main rows within
+    ``index_add_`` and 1.25 x ``rank_reduce`` on the same stream; kernel 7
+    within ``index_add_`` at every bo, and bo 32 within 2 x bo 8."""
+    out = []
+
+    def add(kernel, row, against, yard, factor):
+        out.append(dict(kernel=kernel, case=row["case"], dtype=row["dtype"],
+                        device_ms=row["device_ms"], against=against,
+                        yardstick_ms=yard, factor=factor,
+                        met=row["device_ms"] <= factor * yard))
+    for row in results["fused"]:
+        if "library_device_ms" in row:
+            add("blocked_rank_reduce", row, "index_add_",
+                row["library_device_ms"], 1.0)
+            add("blocked_rank_reduce", row, "rank_reduce",
+                row["rank_reduce_device_ms"], 1.25)
+    lab = {(r["case"], r["dtype"]): r for r in results["partial"]
+           if r["case"].startswith("lab bo=")}
+    for (case, dtn), row in lab.items():
+        add("rank_partial", row, "index_add_", row["library_device_ms"], 1.0)
+        if case == "lab bo=32" and ("lab bo=8", dtn) in lab:
+            add("rank_partial", row, "bo=8", lab[("lab bo=8", dtn)]["device_ms"],
+                2.0)
+    return out
 
 
 def _plain_row_cases(scales, randn) -> list:
@@ -550,20 +590,20 @@ def _plain_row_cases(scales, randn) -> list:
         plain_ms = cuda_ms(lambda: rank_reduce_plain(
             g, None, plan.start, plan.end, c), reps=3)
         keep = plan.ids >= 0
-        lib_ms = _index_add_ms(cot32.to(dt)[keep], plan.ids[keep], h2,
-                               g.device)
+        lib_ms, lib_dms = _index_add_ms(cot32.to(dt)[keep], plan.ids[keep], h2,
+                                        g.device)
         nbytes = entries * c * g.element_size() + 2 * h2 * 4 + got.numel() * 4
         bms, by = bound_ms(nbytes, float(entries * c), "float32")
         row = dict(case="gather_rows adjoint R=0", dtype=dtn,
                    shape=f"M={g.shape[0]} C={c} R=0 T={h2}", max_abs_err=err,
                    ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=lib_ms)
+                   bound_by=by, library_ms=lib_ms, library_device_ms=lib_dms)
         rows.append(row)
         log(f"rank_reduce gather_rows adjoint (R = 0) {dtn} [{row['shape']}]: "
             f"max_abs_err {err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; "
             f"kernel {ms:.4f} ms per call, {dms:.4f} ms device, plain "
-            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})")
+            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms per call, "
+            f"{lib_dms:.4f} ms device, bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -643,7 +683,7 @@ def _fused_cases(scales, randn) -> list:
                 sv = g
             ids = plan.ids[perm]
             keep = ids >= 0
-            lib_ms = _index_add_ms(sv[keep], ids[keep], t, g.device)
+            lib_ms, lib_dms = _index_add_ms(sv[keep], ids[keep], t, g.device)
             nbytes = (entries * g.shape[1] * g.element_size() + g.shape[0] * 4
                       + start_rows.numel() * 4 + got.numel() * 4)
             flops = (2.0 if weighted else 1.0) * entries * got.shape[1]
@@ -652,14 +692,14 @@ def _fused_cases(scales, randn) -> list:
                        shape=f"M={g.shape[0]} C={c} R={r_k} T={t}",
                        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                       rank_reduce_device_ms=rr_dms)
+                       library_device_ms=lib_dms, rank_reduce_device_ms=rr_dms)
             rows.append(row)
             log(f"blocked_rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun and rank_reduce "
                 f"bit-identical; kernel {ms:.4f} ms per call, {dms:.4f} ms "
                 f"device (rank_reduce {rr_dms:.4f} ms device), plain "
-                f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-                f"{bms:.4f} ms ({by})")
+                f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms per call, "
+                f"{lib_dms:.4f} ms device, bound {bms:.4f} ms ({by})")
     dev = scales[0].pc1_blur_neighbors.device
     for case in fused_cases():
         for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -769,20 +809,21 @@ def _partial_cases(gen) -> list:
             ms, dms = cuda_ms(kern), device_ms(kern)
             plain_ms = (cuda_ms(lambda: rank_partial_plain(
                 g, meta, c, r, True, out_dtype=dt), reps=3) if bo == 8 else None)
-            lib_ms = _index_add_ms(sv, key, got.shape[0], g.device)
+            lib_ms, lib_dms = _index_add_ms(sv, key, got.shape[0], g.device)
             nbytes = (g.numel() * g.element_size() + m * 4
                       + got.numel() * got.element_size())
             bms, by = bound_ms(nbytes, 2.0 * m * (c + 1), "float32")
             row = dict(case=f"lab bo={bo}", dtype=dtn,
                        shape=f"M={m} C={c} R={r} out {dtn}", max_abs_err=err,
                        ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, library_ms=lib_ms)
+                       bound_by=by, library_ms=lib_ms, library_device_ms=lib_dms)
             rows.append(row)
             log(f"rank_partial lab bo={bo} {dtn}-out [{row['shape']}]: max_abs_err "
                 f"{err:.3e}, rerun bit-identical; kernel {ms:.4f} ms per call, "
                 f"{dms:.4f} ms device, "
                 + (f"plain {plain_ms:.4f} ms, " if plain_ms is not None else "")
-                + f"index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                + f"index_add_ {lib_ms:.4f} ms per call, {lib_dms:.4f} ms device, "
+                f"bound {bms:.4f} ms ({by})")
     for case in partial_cases():
         for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             a = to_torch(case, dt, g.device)
@@ -1378,7 +1419,7 @@ def kernels_line(results) -> dict:
             source=f"hplflownet_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches[name],
             **{k: row[k] for k in keys},
-            **({"device_ms": row["device_ms"]} if "device_ms" in row else {}),
+            **{k: row[k] for k in ("device_ms", "library_device_ms") if k in row},
             shape=row["shape"] + " bf16",
             max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
             **({"launches_forward": launches_fwd[name]}

@@ -41,12 +41,12 @@
 //      are chosen per launch: the fewest ring steps that fit;
 //   3. per stage, one thread per entry turns its meta into a tile-local
 //      rank (or -1) and its selected weight, once, in shared memory;
-//   4. sums: warp w owns ranks w, w + 8, w + 16, w + 24 and lane l columns
-//      l + 32 q of the slab; for a contiguous run it forms the products of
-//      four entries at a time and adds them in stream order, carrying the
-//      float32 partial sums in registers from stage to stage (a rank whose
-//      run is broken checks each entry's key).  No global load lies in
-//      this chain;
+//   4. sums (rank_tile::add_entries): warp w owns ranks w, w + 8, w + 16,
+//      w + 24 and lane l columns l + 32 q of the slab; for a contiguous run
+//      it forms the products of four entries at a time and adds them in
+//      stream order, carrying the float32 partial sums in registers from
+//      stage to stage (a rank whose run is broken checks each entry's key).
+//      No global load lies in this chain;
 //   5. after a slab's last stage, writes the tile (zero rows included) to
 //      shared memory and out with 16-byte stores.
 // Each output is a float32 sum from +0 in stream order with __fadd_rn, the
@@ -88,18 +88,14 @@ __device__ __forceinline__ int rank_of(int meta) { return WEIGHTED ? (meta >> 2)
 
 // Shared-memory layout of one launch (bytes), computed on the host.
 struct Layout {
-  int sw;        // output columns per slab (32 * NQ)
-  int stage;     // stream rows per stage (STAGE, or fewer for wide rows)
-  int nslab;     // slabs of the output row
-  int whole;     // one slab holds every output column: rows staged whole
-  int flat;      // whole rows, pitch a multiple of 16: one contiguous copy
-  int woff;      // byte offset of the weight lanes in a staged row
-  int spitch;    // staged row pitch (multiple of 16)
-  int bars;      // NS stage barriers (bulk copies)
-  int keys;      // STAGE tile-local ranks (-1: none) of the stage summed
-  int ws;        // STAGE weights of the stage summed
-  int bounds;    // first[SUB], last[SUB], count[SUB], span[2]
-  int tile;      // SUB x slab float sums
+  RowLayout row;  // how staged rows sit (slab width row.sw = 32 nq)
+  int stage;      // stream rows per stage (STAGE, or fewer for wide rows)
+  int nslab;      // slabs of the output row
+  int bars;       // NS stage barriers (bulk copies)
+  int keys;       // STAGE tile-local ranks (-1: none) of the stage summed
+  int ws;         // STAGE weights of the stage summed
+  int bounds;     // first[SUB], last[SUB], count[SUB], span[2]
+  int tile;       // SUB x slab float sums
   int total;
 };
 
@@ -126,25 +122,21 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
   const int c_out = c + (with_weights ? 1 : 0);
   const int blk = blockIdx.x / (RANKS / SUB);
   const int base = blockIdx.x * SUB;                 // first rank of the tile
+  const RowLayout& R = L.row;
 
   if (tid < SUB) {
     s_first[tid] = INT_MAX;
     s_last[tid] = -1;
     s_count[tid] = 0;
   }
-  if (tid == 0) {
-    for (int i = 0; i < NS; ++i) mbar_init(&s_bar[i], 1);
-    mbar_fence_init();
-  }
+  ring_init<NS>(s_bar);
   int lo = start_rows[blk];
   lo = lo < 0 ? 0 : (lo > m ? m : lo);
   int hi = blk + 1 < nblk ? start_rows[blk + 1] : m;
   hi = hi < lo ? lo : (hi > m ? m : hi);
   __syncthreads();
   // 1. each rank's first and last entry and its count in the block's range
-  //    (entries that add something: a lane >= R adds nothing); lanes of one
-  //    rank combine first (a rank's entries are usually neighbours), so one
-  //    lane of each does the shared atomics
+  //    (entries that add something: a lane >= R adds nothing)
   for (int j0 = lo; j0 < hi; j0 += 4 * THREADS) {
     int mj[4];
 #pragma unroll
@@ -157,15 +149,7 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
       const int j = j0 + u * THREADS + tid;
       const int k = rank_of<WEIGHTED>(mj[u]) - base;
       const bool hit = j < hi && k >= 0 && k < SUB && (!WEIGHTED || (mj[u] & 3) < r);
-      const unsigned hits = __ballot_sync(0xffffffffu, hit);
-      if (hit) {
-        const unsigned peers = __match_any_sync(hits, k);
-        if (lane == __ffs(peers) - 1) {
-          atomicMin(&s_first[k], j);
-          atomicAdd(&s_count[k], __popc(peers));
-        }
-        if (lane == 31 - __clz(peers)) atomicMax(&s_last[k], j);
-      }
+      note_entry(s_first, s_last, s_count, hit, k, j);
     }
   }
   __syncthreads();
@@ -192,13 +176,8 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
   }
 
   // 2. the ring: stage i holds stream rows [s0 + stage (i % nst), ...) of
-  //    slab i / nst, by one bulk copy (whole rows, pitch a multiple of 16
-  //    bytes) or by cp.async row by row; its metas come into registers, one
-  //    per thread, when it is issued
-  constexpr int ES = sizeof(T);
-  const long long pitch = (long long)cr * ES;
-  const unsigned char* gbytes = reinterpret_cast<const unsigned char*>(g);
-  const int vec_w = chunk_bytes(gbytes + (long long)c * ES, pitch);
+  //    slab i / nst; its metas come into registers, one per thread, when it
+  //    is issued
   auto issue = [&](int i) -> int {
     int mj = -1;
     if (i < nstage) {
@@ -206,25 +185,8 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
       const int js = s0 + (i - slab * nst) * L.stage;
       const int n = max(0, min(L.stage, e0 - js));
       const int slot = i % NS;
-      unsigned char* rows = ring + slot * L.stage * L.spitch;
-      const unsigned char* src = gbytes + (long long)js * pitch;
-      if (L.flat) {
-        if (tid == 0) {
-          fence_proxy_async();
-          bulk_copy(rows, src, n * (int)pitch, &s_bar[slot]);
-        }
-      } else if (L.whole) {
-        copy_rows<THREADS>(rows, L.spitch, src, pitch, n, cr * ES,
-                           chunk_bytes(gbytes, pitch));
-      } else {
-        const int o0 = slab * L.sw;
-        const int nv = max(0, min(o0 + L.sw, c) - o0);
-        copy_rows<THREADS>(rows, L.spitch, src + (long long)o0 * ES, pitch, n,
-                           nv * ES, chunk_bytes(gbytes + (long long)o0 * ES, pitch));
-        if (WEIGHTED)
-          copy_rows<THREADS>(rows + L.woff, L.spitch, src + (long long)c * ES,
-                             pitch, n, r * ES, vec_w);
-      }
+      stage_rows<T, THREADS>(ring + slot * L.stage * R.spitch, g, cr, c, js, n,
+                             slab * R.sw, R, &s_bar[slot]);
       if (tid < n) mj = __ldg(meta + js + tid);
     }
     cp_async_commit();
@@ -236,21 +198,16 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) mq[i] = issue(i);
   for (int i = 0; i < nstage; ++i) {
-    cp_async_wait<NS - 2>();
-    if (L.flat) mbar_wait(&s_bar[i % NS], (i / NS) & 1);
-    __syncthreads();                 // stage i landed; stage i - 1 summed
-    const int mj = mq[0];
-#pragma unroll
-    for (int k = 0; k < NS - 2; ++k) mq[k] = mq[k + 1];
-    mq[NS - 2] = issue(i + NS - 1);  // into stage i - 1's slot
+    ring_wait<NS>(R, s_bar, i);      // stage i landed; stage i - 1 summed
+    const int mj = shift_in(mq, issue(i + NS - 1));  // into i - 1's slot
     const int slab = i / nst, st = i - slab * nst;
-    const int o0 = slab * L.sw;
-    const int o1 = min(o0 + L.sw, c_out);
+    const int o0 = slab * R.sw;
+    const int o1 = min(o0 + R.sw, c_out);
     const int sw = o1 - o0;                          // slab width
     const int nv = max(0, min(o1, c) - o0);          // value columns
     const int js = s0 + st * L.stage;
     const int n = max(0, min(L.stage, e0 - js));
-    const unsigned char* rows = ring + (i % NS) * L.stage * L.spitch;
+    const unsigned char* rows = ring + (i % NS) * L.stage * R.spitch;
     if (st == 0) {
 #pragma unroll
       for (int kk = 0; kk < KPW; ++kk)
@@ -266,66 +223,20 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
         const int ln = mj & 3;
         ok = ok && ln < r;
         if (ok)
-          w = to_f32(reinterpret_cast<const T*>(rows + tid * L.spitch + L.woff)[ln]);
+          w = to_f32(reinterpret_cast<const T*>(rows + tid * R.spitch + R.woff)[ln]);
       }
       s_key[tid] = ok ? k : -1;
       s_w[tid] = w;
     }
     __syncthreads();
-    // 4. each owned rank's entries of this stage, in stream order: products
-    //    of a contiguous run formed four entries at a time, then added in
-    //    order
-    const int vbase = L.whole ? o0 : 0;              // slab column 0 in a row
+    // 4. each owned rank's entries of this stage, in stream order; a run
+    //    longer than a stage carries its sums in acc
+    const int vbase = R.whole ? o0 : 0;              // slab column 0 in a row
 #pragma unroll
-    for (int kk = 0; kk < KPW; ++kk) {
-      const int k = warp + WARPS * kk;
-      const int a = max(kf[kk], js) - js, b = min(kl[kk], js + n) - js;
-      if (contiguous[kk]) {
-        int t = a;
-        for (; t + 4 <= b; t += 4) {
-          float p[4][NQ];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float w = WEIGHTED ? s_w[t + u] : 1.f;
-            const T* row = reinterpret_cast<const T*>(rows + (t + u) * L.spitch) + vbase;
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) {
-              const int col = lane + 32 * q;
-              p[u][q] = col < nv ? (WEIGHTED ? product(row[col], w) : to_f32(row[col]))
-                                 : w;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) acc[kk][q] = __fadd_rn(acc[kk][q], p[u][q]);
-        }
-        for (; t < b; ++t) {
-          const float w = WEIGHTED ? s_w[t] : 1.f;
-          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            const int col = lane + 32 * q;
-            acc[kk][q] = __fadd_rn(acc[kk][q], col < nv ? (WEIGHTED ? product(row[col], w)
-                                                                    : to_f32(row[col]))
-                                                        : w);
-          }
-        }
-      } else {
-        for (int t = a; t < b; ++t) {
-          if (s_key[t] != k) continue;
-          const float w = WEIGHTED ? s_w[t] : 1.f;
-          const T* row = reinterpret_cast<const T*>(rows + t * L.spitch) + vbase;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            const int col = lane + 32 * q;
-            acc[kk][q] = __fadd_rn(acc[kk][q], col < nv ? (WEIGHTED ? product(row[col], w)
-                                                                    : to_f32(row[col]))
-                                                        : w);
-          }
-        }
-      }
-    }
+    for (int kk = 0; kk < KPW; ++kk)
+      add_entries<T, WEIGHTED, NQ>(
+          acc[kk], rows, R.spitch, vbase, nv, s_w, s_key, warp + WARPS * kk,
+          contiguous[kk], max(kf[kk], js) - js, min(kl[kk], js + n) - js);
     // 5. a finished slab: the tile, zero rows included, out in 16-byte stores
     if (st == nst - 1) {
 #pragma unroll
@@ -346,20 +257,11 @@ blocked_rank_reduce_kernel(const T* __restrict__ g, int m, int cr, int c,
 Layout layout(int c_out, int c, int r, int es, int nq, int stage,
               bool aligned16) {
   Layout L;
-  L.sw = 32 * nq;
+  L.row = row_layout(c_out, c, r, es, 32 * nq, aligned16);
   L.stage = stage;
-  const int sw = c_out < L.sw ? c_out : L.sw;
-  L.nslab = (c_out + L.sw - 1) / L.sw;
-  L.whole = L.nslab == 1;
-  L.flat = L.whole && aligned16 && ((c + r) * es) % 16 == 0;
-  if (L.whole) {                      // the row as it is: values, then lanes
-    L.woff = c * es;
-    L.spitch = round16((c + r) * es);
-  } else {                            // the slab's values, then the lanes
-    L.woff = round16(L.sw * es);
-    L.spitch = L.woff + round16(r * es);
-  }
-  L.bars = NS * stage * L.spitch;
+  const int sw = c_out < L.row.sw ? c_out : L.row.sw;
+  L.nslab = (c_out + L.row.sw - 1) / L.row.sw;
+  L.bars = NS * stage * L.row.spitch;
   L.keys = L.bars + round16(NS * 8);
   L.ws = L.keys + stage * 4;
   L.bounds = L.ws + stage * 4;
@@ -368,14 +270,15 @@ Layout layout(int c_out, int c, int r, int es, int nq, int stage,
   return L;
 }
 
-// The slab width (NQ = 1..4: 32 NQ output columns) and stage length (32,
-// 64 or 128 rows) whose ring and tile leave room for three blocks on an SM
-// and that take the fewest ring steps for a tile's average span of
+// The slab width (nq = 1..4: 32 nq output columns) and stage length
+// (32, 64 or 128 rows) whose ring and tile leave room for three blocks on
+// an SM and that take the fewest ring steps for a tile's average span of
 // ``span`` rows (the longer stage on a tie).
 Layout choose(int c_out, int c, int r, int es, bool aligned16, int span) {
   Layout best = layout(c_out, c, r, es, 1, 32, aligned16);
   long long best_steps = -1;
-  for (int nq = (c_out + 31) / 32 < 4 ? (c_out + 31) / 32 : 4; nq >= 1; --nq)
+  const int nq_max = (c_out + 31) / 32 < 4 ? (c_out + 31) / 32 : 4;
+  for (int nq = nq_max; nq >= 1; --nq)
     for (int stage = STAGE; stage >= 32; stage /= 2) {
       const Layout L = layout(c_out, c, r, es, nq, stage, aligned16);
       const long long steps = (long long)L.nslab * ((span + stage - 1) / stage);
@@ -394,7 +297,7 @@ cudaError_t launch(const Layout& L, const void* g, int m, int cr, int c,
                    const int* meta, const int* start_rows, int nblk,
                    int with_weights, float* out, cudaStream_t s) {
   if (L.total > MAX_SMEM) return cudaErrorInvalidValue;
-  static int allowed = 0;
+  static int allowed[MAX_DEVICES] = {};
   const cudaError_t e = allow_smem(blocked_rank_reduce_kernel<T, WEIGHTED, NQ>,
                                    L.total, allowed);
   if (e != cudaSuccess) return e;
@@ -405,6 +308,9 @@ cudaError_t launch(const Layout& L, const void* g, int m, int cr, int c,
   return cudaGetLastError();
 }
 
+// One build per slab width: a warp's column groups as a template count
+// keeps its accumulators in registers and its inner loop free of checks
+// (a count read at run time took 1.4-1.9x the time on an H100).
 template <typename T, bool WEIGHTED>
 cudaError_t launch_nq(const void* g, int m, int cr, int c, const int* meta,
                       const int* start_rows, int nblk, int with_weights,
@@ -412,7 +318,7 @@ cudaError_t launch_nq(const void* g, int m, int cr, int c, const int* meta,
   const Layout L = choose(c + (with_weights ? 1 : 0), c, cr - c, (int)sizeof(T),
                           reinterpret_cast<uintptr_t>(g) % 16 == 0,
                           m / (nblk * (RANKS / SUB)) + 1);
-  const int nq = L.sw / 32;
+  const int nq = L.row.sw / 32;
   if (nq == 1)
     return launch<T, WEIGHTED, 1>(L, g, m, cr, c, meta, start_rows, nblk, with_weights, out, s);
   if (nq == 2)

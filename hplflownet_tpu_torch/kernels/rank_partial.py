@@ -12,9 +12,10 @@ is the function of ``hplflownet_tpu/ops/pallas_stencil.py``
 
 Replaces ``tools/rank_partial_lab.py`` ``variant`` (:110; ``pallas_call``
 :121, body ``_v2_kernel`` :74).  ``bo``, the lab's blocks-per-program sweep,
-is the number of 128-entry blocks each CUDA block takes; each block is one
-stage of a shared-memory ring, so the next blocks load while one is summed
-and stored.  The variant's ``vec_prepass`` has no counterpart: the
+is the number of 128-entry blocks each CUDA block takes; the launch splits
+each block's 128 ranks over up to 16 CUDA blocks so that the grid has two
+per SM, and the next block loads while one is summed and stored.  The
+variant's ``vec_prepass`` has no counterpart: the
 products are formed as they are summed.  On CUDA tensors the wrapper launches
 ``csrc/rank_partial.cu``; on CPU tensors it runs :func:`rank_partial_plain`.
 """

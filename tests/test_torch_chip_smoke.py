@@ -57,6 +57,19 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     for kind in ("reduce", "fused", "partial"):
         assert all(r["device_ms"] > 0 and r["ms"] > 0 for r in results[kind])
     assert all(r["rank_reduce_device_ms"] > 0 for r in results["fused"][:6])
+    # the index_add_ yardstick timed as the kernels are, on every path row
+    for rows in (results["reduce"], results["fused"][:6],
+                 results["partial"][:6]):
+        assert all(r["library_device_ms"] > 0 for r in rows)
+    # kernel 5: index_add_ and rank_reduce on 6 rows; kernel 7: index_add_
+    # at each bo and output dtype, and bo 32 against bo 8 in both
+    assert [(t["kernel"], t["against"]) for t in results["rank_targets"]] == (
+        [("blocked_rank_reduce", "index_add_"),
+         ("blocked_rank_reduce", "rank_reduce")] * 6
+        + [("rank_partial", "index_add_")] * 4
+        + [("rank_partial", "index_add_"), ("rank_partial", "bo=8")] * 2)
+    assert all(t["met"] == (t["device_ms"] <= t["factor"] * t["yardstick_ms"])
+               for t in results["rank_targets"])
     cs.phase_reference()
     results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)))
     results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
@@ -68,9 +81,10 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     assert [k["name"] for k in line["kernels"]] == KERNELS
     for k in line["kernels"]:
         assert KEYS <= set(k)
-        assert ("device_ms" in k) == (k["name"] in ("rank_reduce",
-                                                    "blocked_rank_reduce",
-                                                    "rank_partial"))
+        segmented = k["name"] in ("rank_reduce", "blocked_rank_reduce",
+                                  "rank_partial")
+        assert ("device_ms" in k) == segmented
+        assert ("library_device_ms" in k) == segmented
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
         assert k["launches"] > 0
 
