@@ -16,17 +16,22 @@ Phases, each printing a line with its elapsed seconds:
             tables' stencil plans) also "gather + matmul" (the spread's
             materialisation with the GEMM), TFLOP/s over present taps, the
             plan's block coverage, reruns bit for bit, and each bf16 target
-            against the library call; the segmented sums (kernels 2, 5
-            and 7) also give ``device_ms``, the mean of a replayed CUDA
-            graph of 20 calls (their per-call ``ms`` near 0.05 ms is the
-            wrapper's host time), beside the same for their ``index_add_``
-            yardstick, with the device-time targets of kernels 5 and 7
-            against it (and against ``rank_reduce``, and kernel 7's bo 32
-            against its bo 8), and kernels 5 and 7 run the edge-case
-            streams of ``hplflownet_tpu_torch.tools.rank_cases`` (kernel 5
-            bit for bit against ``rank_reduce`` where the stream is a
-            rank-mode plan); nvidia-smi samples SM clock, power and
-            temperature meanwhile;
+            against the library call; kernels 2 and 4-7 also give
+            ``device_ms``, the mean of a replayed CUDA graph of 20 calls
+            (their per-call ``ms`` near 0.05 ms is the wrapper's host
+            time), beside the same for their yardstick (``index_add_``,
+            index + sum, ``index_select``), with the device-time targets
+            of kernels 2, 4, 5 and 7; kernels 2 and 4 run at every shape
+            one flagship train step gives them, on the step's own inputs
+            (``hplflownet_tpu_torch.tools.step_calls``), with launches
+            per step and per forward, the bound and kernel 2's regime
+            (kernel 2 bit for bit against kernel 5 there); kernels 2, 5
+            and 7 run the edge-case streams of
+            ``hplflownet_tpu_torch.tools.rank_cases`` and kernel 4 those
+            of ``hplflownet_tpu_torch.tools.tap_cases`` (kernel 5 bit for
+            bit against ``rank_reduce`` where the stream is a rank-mode
+            plan); nvidia-smi samples SM clock, power and temperature
+            meanwhile;
 4. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
             tests/data/torch_port_ref_n64.npz, and the float32 train step's
@@ -58,7 +63,9 @@ Phases, each printing a line with its elapsed seconds:
 
 Then one JSON line listing every kernel, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before the last line.  Without a CUDA card, or without the package beside
+before the last line.  ``--phases device,build,kernels`` runs only the
+named phases (and prints no kernels line); ``--out f.json`` writes the
+phases' results.  Without a CUDA card, or without the package beside
 it, the script exits non-zero and prints no result.
 """
 
@@ -118,28 +125,8 @@ def device_ms(fn) -> float:
     """Mean device time of one ``fn()`` call: CUDA events around replays of
     a CUDA graph of GRAPH_CALLS captured calls, so the wrapper's host time
     drops out (the host clock in a CPU rehearsal)."""
-    import torch
-    if DEVICE != "cuda":
-        return cuda_ms(fn, reps=2, warmup=1)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):                 # warm up off the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(GRAPH_REPLAYS):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (GRAPH_REPLAYS * GRAPH_CALLS)
+    from hplflownet_tpu_torch.tools.timing import graph_ms
+    return graph_ms(fn, DEVICE, GRAPH_CALLS, GRAPH_REPLAYS)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -436,7 +423,8 @@ def _stencil_cases(scales, randn) -> list:
 
 def phase_kernels(results):
     import torch
-    from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
+    from hplflownet_tpu_torch.kernels.splat import (rank_reduce, rank_reduce_plain,
+                                                    rank_reduce_regime)
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -496,13 +484,14 @@ def phase_kernels(results):
                        shape=f"M={g.shape[0]} C={c} R={r} T={t_out}",
                        max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                       library_device_ms=lib_dms)
+                       library_device_ms=lib_dms,
+                       regime=rank_reduce_regime(g, rid, plan.start, c, with_w))
             reduce_rows.append(row)
             log(f"rank_reduce {name} {dtn} [{row['shape']}]: max_abs_err "
                 f"{err:.3e} (atol 1e-4 rtol 1e-5), rerun bit-identical; kernel "
                 f"{ms:.4f} ms per call, {dms:.4f} ms device, plain {plain_ms:.4f} "
                 f"ms, index_add_ {lib_ms:.4f} ms per call, {lib_dms:.4f} ms "
-                f"device, bound {bms:.4f} ms ({by})")
+                f"device, bound {bms:.4f} ms ({by}); regime {row['regime']}")
     reduce_rows.extend(_plain_row_cases(scales, randn))
     results["dkernel"] = _dkernel_cases(scales, randn)
     results["tap_tables"] = _tap_tables_cases(scales, randn)
@@ -511,10 +500,13 @@ def phase_kernels(results):
     results["fused"] = _fused_cases(scales, randn)
     results["take"] = _take_cases(scales, gen)
     results["partial"] = _partial_cases(gen)
+    results["reduce_step"], results["tap_step"] = _step_cases()
+    results["reduce_edge"] = _reduce_edge_cases(dev)
+    results["tap_edge"] = _tap_edge_cases(dev)
     results["targets"] = target_rows(results)
     results["rank_targets"] = rank_target_rows(results)
-    log(f"device_ms of kernels 2, 5 and 7 and of their index_add_ yardstick: "
-        f"a CUDA graph of {GRAPH_CALLS} calls, {GRAPH_REPLAYS} replays")
+    log(f"device_ms of kernels 2 and 4-7 and of their yardsticks: a CUDA "
+        f"graph of {GRAPH_CALLS} calls, {GRAPH_REPLAYS} replays")
     for t in results["targets"]:
         log(f"target {t['case']} (bf16): kernel {t['ms']:.4f} ms vs "
             f"{t['factor']:g} x library {t['library_ms']:.4f} ms: "
@@ -523,6 +515,15 @@ def phase_kernels(results):
         log(f"target {t['kernel']} {t['case']} {t['dtype']}: device_ms "
             f"{t['device_ms']:.4f} vs {t['factor']:g} x {t['against']} "
             f"{t['yardstick_ms']:.4f} ms: {'met' if t['met'] else 'MISSED'}")
+    for kind, name in (("reduce_step", "rank_reduce"),
+                       ("tap_step", "stencil_tap_tables_sum")):
+        rows = results[kind]
+        log(f"{name} over one train step: {sum(r['launches'] for r in rows)} "
+            f"launches ({sum(r['launches_forward'] for r in rows)} in the "
+            f"forward) at {len(rows)} shapes, "
+            f"{sum(r['launches'] * r['device_ms'] for r in rows):.4f} ms "
+            f"device, {sum(r['launches'] * r['bound_ms'] for r in rows):.4f} "
+            f"ms bound")
 
 
 def _index_add_ms(sv, ids, n_out, dev) -> tuple:
@@ -537,17 +538,21 @@ def _index_add_ms(sv, ids, n_out, dev) -> tuple:
 
 
 def rank_target_rows(results) -> list:
-    """The device-time targets of kernels 5 and 7, each against a yardstick
-    timed the same way (a replayed CUDA graph): kernel 5's main rows within
-    ``index_add_`` and 1.25 x ``rank_reduce`` on the same stream; kernel 7
-    within ``index_add_`` at every bo, and bo 32 within 2 x bo 8."""
+    """The device-time targets of kernels 2, 4, 5 and 7, each against a
+    yardstick timed the same way (a replayed CUDA graph) or a bound:
+    kernel 5's main rows within ``index_add_`` and 1.25 x ``rank_reduce``
+    on the same stream; kernel 7 within ``index_add_`` at every bo, and bo
+    32 within 2 x bo 8; kernel 2 at the bf16 scale-2 splat within 0.017 ms
+    and 1.1 x kernel 5 on the same stream, at the bf16 ``bcn1_`` slice
+    adjoint within 1.4 x its bound; kernel 4 at the bf16 corr1 adjoint
+    within 2 x its bound."""
     out = []
 
-    def add(kernel, row, against, yard, factor):
+    def add(kernel, row, against, yard, factor, dms=None):
+        dms = row["device_ms"] if dms is None else dms
         out.append(dict(kernel=kernel, case=row["case"], dtype=row["dtype"],
-                        device_ms=row["device_ms"], against=against,
-                        yardstick_ms=yard, factor=factor,
-                        met=row["device_ms"] <= factor * yard))
+                        device_ms=dms, against=against, yardstick_ms=yard,
+                        factor=factor, met=dms <= factor * yard))
     for row in results["fused"]:
         if "library_device_ms" in row:
             add("blocked_rank_reduce", row, "index_add_",
@@ -561,6 +566,19 @@ def rank_target_rows(results) -> list:
         if case == "lab bo=32" and ("lab bo=8", dtn) in lab:
             add("rank_partial", row, "bo=8", lab[("lab bo=8", dtn)]["device_ms"],
                 2.0)
+
+    def bf16(kind, case):
+        return [r for r in results[kind]
+                if r["case"] == case and r["dtype"] == "bfloat16"][0]
+    splat = bf16("reduce", "scale-2 splat (bcn3)")
+    add("rank_reduce", splat, "0.017 ms", 0.017, 1.0)
+    fused = bf16("fused", "scale-2 splat (bcn3)")
+    add("rank_reduce", fused, "blocked_rank_reduce", fused["device_ms"], 1.1,
+        dms=fused["rank_reduce_device_ms"])
+    wide = bf16("reduce", "bcn1_ slice adjoint")
+    add("rank_reduce", wide, "bound", wide["bound_ms"], 1.4)
+    tap = bf16("tap_tables", "corr1 adjoint")
+    add("stencil_tap_tables_sum", tap, "bound", tap["bound_ms"], 2.0)
     return out
 
 
@@ -750,17 +768,21 @@ def _take_cases(scales, gen) -> list:
         if not torch.equal(got, want):
             raise AssertionError(f"row_take {dtn}: differs from the plain version")
         ms = cuda_ms(lambda: row_take(table, idx))
+        dms = device_ms(lambda: row_take(table, idx))
         plain_ms = cuda_ms(lambda: row_take_plain(table, idx), reps=3)
         lib_ms = cuda_ms(lambda: table.index_select(0, idx64))
+        lib_dms = device_ms(lambda: table.index_select(0, idx64))
         nbytes = 2 * h * 128 * table.element_size() + h * 4
         bms, by = bound_ms(nbytes, 0.0, "float32")
         row = dict(case="gather lab take", dtype=dtn, shape=f"H={h} C=128",
-                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=lib_ms)
+                   max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                   library_device_ms=lib_dms)
         rows.append(row)
         log(f"row_take {dtn} [{row['shape']}]: equal to index_select; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            f"{ms:.4f} ms per call, {dms:.4f} ms device, plain {plain_ms:.4f} "
+            f"ms, index_select {lib_ms:.4f} ms per call, {lib_dms:.4f} ms "
+            f"device, bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -958,22 +980,207 @@ def _tap_tables_cases(scales, randn) -> list:
         # the same float32 sums in the same tap order
         err = max_err(got, want, 1e-5, 1e-6, f"stencil_tap_tables_sum {dtn}")
         ms = cuda_ms(lambda: stencil_tap_tables_sum(z, c, nb))
+        dms = device_ms(lambda: stencil_tap_tables_sum(z, c, nb))
         plain_ms = cuda_ms(lambda: stencil_tap_tables_sum_plain(z, c, nb), reps=3)
         z3 = z.view(h, f, c)
-        lib_ms = cuda_ms(lambda: torch.where(mask, z3[ids, taps], 0).sum(
-            1, dtype=torch.float32))
+
+        def lib():
+            return torch.where(mask, z3[ids, taps], 0).sum(1, dtype=torch.float32)
+        lib_ms, lib_dms = cuda_ms(lib), device_ms(lib)
         nbytes = nnz * c * z.element_size() + nb.numel() * 4 + got.numel() * 4
         # one float32 add per element read
         bms, by = bound_ms(nbytes, float(nnz * c), "float32")
         row = dict(case="corr1 adjoint", dtype=dtn,
                    shape=f"H={h} F={f} C={c} H_out={h_out}", max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   library_ms=lib_ms)
+                   ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms, library_device_ms=lib_dms)
         rows.append(row)
         log(f"stencil_tap_tables_sum corr1 adjoint {dtn} [{row['shape']}]: "
-            f"max_abs_err {err:.3e} (atol 1e-5 rtol 1e-6); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, index + sum {lib_ms:.4f} ms, bound "
+            f"max_abs_err {err:.3e} (atol 1e-5 rtol 1e-6); kernel {ms:.4f} ms "
+            f"per call, {dms:.4f} ms device, plain {plain_ms:.4f} ms, index + "
+            f"sum {lib_ms:.4f} ms per call, {lib_dms:.4f} ms device, bound "
             f"{bms:.4f} ms ({by})")
+    return rows
+
+
+def _reduce_step_label(key) -> str:
+    if key["R"] == 0:
+        return "plain rows"
+    return "splat" if key["with_weights"] else "slice adjoint"
+
+
+def _step_cases() -> tuple:
+    """Kernels 2 and 4 at every distinct shape one flagship train step
+    (bf16) gives them, on the step's own inputs (recorded by
+    ``tools.step_calls``): each against its plain version, a rerun bit for
+    bit, kernel 2 against kernel 5 bit for bit (every step stream is a
+    rank-mode plan's), ``device_ms``, the bound, the launches per step and
+    per forward, and launches x (device_ms - bound).  -> (kernel 2's rows,
+    kernel 4's rows)"""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_fused import blocked_rank_reduce
+    from hplflownet_tpu_torch.kernels.splat import (rank_reduce, rank_reduce_plain,
+                                                    rank_reduce_regime)
+    from hplflownet_tpu_torch.kernels.tap_tables import (
+        stencil_tap_tables_sum, stencil_tap_tables_sum_plain)
+    from hplflownet_tpu_torch.tools.rank_cases import fused_args_from_runs
+    from hplflownet_tpu_torch.tools.step_calls import flagship_calls
+    calls = flagship_calls(DEVICE, NUM_POINTS, CAPACITIES)
+    reduce_rows, tap_rows = [], []
+    for grp in calls["rank_reduce"]:
+        a, k = grp["args"], grp["key"]
+        g, rid, start, end, c, with_w = (a["g"], a["rid"], a["start"], a["end"],
+                                         a["c"], a["with_weights"])
+        name = f"step {_reduce_step_label(k)}"
+        shape = f"M={k['M']} C={k['C']} R={k['R']} T={k['T']}"
+        what = f"rank_reduce {name} [{shape}]"
+
+        def kern():
+            return rank_reduce(g, rid, start, end, c, with_w)
+        got, again = kern(), kern()
+        want = rank_reduce_plain(g, rid, start, end, c, with_w)
+        fused = fused_args_from_runs(rid, start, end, g.shape[0])
+        if fused is None:
+            raise AssertionError(f"{what}: not a rank-mode plan's runs")
+        other = blocked_rank_reduce(g, *fused, c, k["R"], with_w)[:k["T"]]
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: rerun differs")
+        if not torch.equal(got, other):
+            raise AssertionError(f"{what}: not bit-equal to blocked_rank_reduce")
+        err = max_err(got, want, 1e-4, 1e-5, what)
+        dms = device_ms(kern)
+        entries = int((end.clamp(max=k["M"]) - start.clamp(min=0))
+                      .clamp(min=0).sum())
+        nbytes = (entries * g.shape[1] * g.element_size()
+                  + (entries * 4 if rid is not None else 0)
+                  + 2 * k["T"] * 4 + got.numel() * 4)
+        bms, by = bound_ms(nbytes, (2.0 if k["R"] else 1.0) * entries
+                           * got.shape[1], "float32")
+        row = dict(case=name, dtype=k["dtype"], shape=shape,
+                   launches=grp["launches_step"],
+                   launches_forward=grp["launches_forward"], max_abs_err=err,
+                   device_ms=dms, bound_ms=bms, bound_by=by,
+                   excess_ms=grp["launches_step"] * (dms - bms),
+                   regime=rank_reduce_regime(g, rid, start, c, with_w))
+        reduce_rows.append(row)
+        log(f"{what} {k['dtype']}, {row['launches']} per step "
+            f"({row['launches_forward']} per forward): max_abs_err {err:.3e} "
+            f"(atol 1e-4 rtol 1e-5), rerun and blocked_rank_reduce "
+            f"bit-identical; {dms:.4f} ms device, bound {bms:.4f} ms ({by}); "
+            f"launches x (device - bound) {row['excess_ms']:.4f} ms; regime "
+            f"{row['regime']}")
+    for grp in calls["stencil_tap_tables_sum"]:
+        a, k = grp["args"], grp["key"]
+        z, c, nb = a["tables"], a["c"], a["neighbors"]
+        shape = f"H={k['H']} F={k['F']} C={k['C']} H_out={k['H_out']}"
+        what = f"stencil_tap_tables_sum step corr adjoint [{shape}]"
+
+        def kern():
+            return stencil_tap_tables_sum(z, c, nb)
+        got, again = kern(), kern()
+        want = stencil_tap_tables_sum_plain(z, c, nb)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: rerun differs")
+        err = max_err(got, want, 1e-5, 1e-6, what)
+        dms = device_ms(kern)
+        nnz = int(((nb >= 0) & (nb < k["H"])).sum())
+        nbytes = nnz * c * z.element_size() + nb.numel() * 4 + got.numel() * 4
+        bms, by = bound_ms(nbytes, float(nnz * c), "float32")
+        row = dict(case="step corr adjoint", dtype=k["dtype"], shape=shape,
+                   launches=grp["launches_step"],
+                   launches_forward=grp["launches_forward"], max_abs_err=err,
+                   device_ms=dms, bound_ms=bms, bound_by=by,
+                   excess_ms=grp["launches_step"] * (dms - bms),
+                   present=nnz / nb.numel())
+        tap_rows.append(row)
+        log(f"{what} {k['dtype']}, {row['launches']} per step: max_abs_err "
+            f"{err:.3e} (atol 1e-5 rtol 1e-6), rerun bit-identical; {dms:.4f} "
+            f"ms device, bound {bms:.4f} ms ({by}); present taps "
+            f"{row['present']:.3f}")
+    return reduce_rows, tap_rows
+
+
+def _reduce_edge_cases(dev) -> list:
+    """``rank_reduce`` (kernel 2) on the edge cases of
+    ``tools.rank_cases.reduce_cases`` (long and empty runs, clamped runs,
+    lanes outside [0, R), odd pitches, R 0-4) in both dtypes: a rerun bit
+    for bit, the plain version within atol 1e-4 + rtol 1e-5, and kernel 5
+    bit for bit where the stream is a plan's."""
+    import torch
+    from hplflownet_tpu_torch.kernels.rank_fused import blocked_rank_reduce
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce, rank_reduce_plain
+    from hplflownet_tpu_torch.tools.rank_cases import reduce_cases, to_torch
+    rows = []
+    for case in reduce_cases():
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            a = to_torch(case, dt, dev)
+            g, rid = a["g"], a.get("rid")
+            what = f"rank_reduce edge {case.name} {dtn}"
+
+            def kern():
+                return rank_reduce(g, rid, a["start"], a["end"], case.c,
+                                   case.with_weights)
+            got, again = kern(), kern()
+            want = rank_reduce_plain(g, rid, a["start"], a["end"], case.c,
+                                     case.with_weights)
+            plan = case.meta is not None
+            other = (blocked_rank_reduce(g, a["meta"], a["start_rows"], case.c,
+                                         case.r, case.with_weights)
+                     [:case.start.shape[0]] if plan else None)
+            sync()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: rerun differs")
+            if plan and not torch.equal(got, other):
+                raise AssertionError(f"{what}: not bit-equal to "
+                                     f"blocked_rank_reduce")
+            err = max_err(got, want, 1e-4, 1e-5, what)
+            dms = device_ms(kern)
+            bms, by = bound_ms(g.numel() * g.element_size() + got.numel() * 4,
+                               2.0 * g.shape[0] * got.shape[1], "float32")
+            row = dict(case=f"edge {case.name}", dtype=dtn,
+                       shape=f"M={g.shape[0]} C={case.c} R={case.r} "
+                       f"T={case.start.shape[0]}", max_abs_err=err,
+                       device_ms=dms, bound_ms=bms, bound_by=by,
+                       blocked_rank_reduce_equal=plan)
+            rows.append(row)
+            log(f"{what} [{row['shape']}]: max_abs_err {err:.3e} (atol 1e-4 "
+                f"rtol 1e-5), rerun " + ("and blocked_rank_reduce " if plan
+                                         else "") + f"bit-identical; "
+                f"{dms:.4f} ms device")
+    return rows
+
+
+def _tap_edge_cases(dev) -> list:
+    """``stencil_tap_tables_sum`` (kernel 4) on the edge cases of
+    ``tools.tap_cases`` (vertices with no and with one present tap, ragged
+    H_out, C 3, 36, 64 and 384) in both dtypes: a rerun bit for bit and the
+    plain version within atol 1e-5 + rtol 1e-6 (both sum in tap order)."""
+    import torch
+    from hplflownet_tpu_torch.kernels.tap_tables import (
+        stencil_tap_tables_sum, stencil_tap_tables_sum_plain)
+    from hplflownet_tpu_torch.tools.tap_cases import tap_cases
+    rows = []
+    for case in tap_cases():
+        nb = torch.from_numpy(case.nb).to(dev)
+        for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tables = torch.from_numpy(case.tables).to(dev, dt)
+            what = f"stencil_tap_tables_sum edge {case.name} {dtn}"
+            got = stencil_tap_tables_sum(tables, case.c, nb)
+            again = stencil_tap_tables_sum(tables, case.c, nb)
+            want = stencil_tap_tables_sum_plain(tables, case.c, nb)
+            sync()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: rerun differs")
+            err = max_err(got, want, 1e-5, 1e-6, what)
+            f, h_out = case.nb.shape
+            row = dict(case=f"edge {case.name}", dtype=dtn,
+                       shape=f"H={case.tables.shape[0]} F={f} C={case.c} "
+                       f"H_out={h_out}", max_abs_err=err)
+            rows.append(row)
+            log(f"{what} [{row['shape']}]: max_abs_err {err:.3e} (atol 1e-5 "
+                f"rtol 1e-6), rerun bit-identical")
     return rows
 
 
@@ -1427,7 +1634,17 @@ def kernels_line(results) -> dict:
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of hplflownet_tpu_torch "
+                                 "on one CUDA card (see the module's note)")
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, comma-separated (e.g. "
+                    "device,build,kernels), and end with their results "
+                    "instead of the kernels line")
+    ap.add_argument("--out", default=None,
+                    help="also write the phases' results as JSON to this file")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1467,8 +1684,15 @@ def main() -> int:
               ("fused", lambda: phase_fused(results)),
               ("tools", lambda: phase_tools(results)),
               ("plans", lambda: phase_plans(results))]
+    only = None if args.phases is None else args.phases.split(",")
+    if only is not None and set(only) - {n for n, _ in phases}:
+        print(f"chip_smoke: unknown phases {sorted(set(only) - {n for n, _ in phases})}",
+              file=sys.stderr)
+        return 2
     outputs = {}
     for i, (name, fn) in enumerate(phases, 1):
+        if only is not None and name not in only:
+            continue
         t = time.perf_counter()
         try:
             outputs[name] = fn()
@@ -1480,8 +1704,13 @@ def main() -> int:
         if name == "device":
             results["card"] = outputs[name][1]
 
-    kind, smi_line = outputs["device"]
-    print(json.dumps(kernels_line(results)), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fd:
+            json.dump(results, fd, indent=1)
+    kind, smi_line = outputs["device"] if "device" in outputs else phase_device()
+    if only is None:
+        print(json.dumps(kernels_line(results)), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

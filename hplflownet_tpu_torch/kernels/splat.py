@@ -13,7 +13,10 @@ Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``blocked_rank_partial``
 with ``segment._combine`` (:247-314): only the per-vertex sums are
 observable, so the partial and combine stages fuse into one deterministic
 segmented sum.  On CUDA tensors the wrapper launches
-``csrc/rank_reduce.cu``; on CPU tensors it runs :func:`rank_reduce_plain`.
+``csrc/rank_reduce.cu`` (a lane group per vertex, wide row loads, batches
+of entries loaded ahead of their in-order sums; :func:`rank_reduce_regime`
+gives the launch's choice); on CPU tensors it runs
+:func:`rank_reduce_plain`.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import torch
 from . import plain_forced
 from ._build import check, entry
 
-__all__ = ["rank_reduce", "rank_reduce_plain", "stream_products",
-           "segment_sums64"]
+__all__ = ["rank_reduce", "rank_reduce_plain", "rank_reduce_regime",
+           "stream_products", "segment_sums64"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -136,3 +139,24 @@ def rank_reduce(g: torch.Tensor,       # (M, C + R) sorted stream
 
 
 rank_reduce.launches = 0
+
+
+def rank_reduce_regime(g: torch.Tensor, rid: torch.Tensor | None,
+                       start: torch.Tensor, c: int,
+                       with_weights: bool = False) -> dict | None:
+    """The kernel's choice for a CUDA stream ``g`` and ``start.shape[0]``
+    runs (a warp per vertex and column slice): bytes per row load
+    (``vec_bytes``), chunks per lane, column slices (``passes``) and
+    entries per batch (``batch``: 1, 4 or 16 by the runs' mean length,
+    capped by registers); None for a CPU tensor, which runs the plain
+    version."""
+    if g.device.type != "cuda":
+        return None
+    fn = entry("rank_reduce", "hpl_rank_reduce_regime", "piiiiii")
+    code = fn(g.data_ptr(), g.shape[0], g.shape[1], c, start.shape[0],
+              int(with_weights), _DTYPES[g.dtype])
+    if code < 0 or (rid is None) != (g.shape[1] == c):
+        raise ValueError(f"rank_reduce takes no stream {tuple(g.shape)} with "
+                         f"C = {c}")
+    return dict(vec_bytes=code & 0xFF, chunks=code >> 8 & 0xFF,
+                passes=code >> 16 & 0xFF, batch=code >> 24)

@@ -4,9 +4,11 @@
 
 Replaces ``hplflownet_tpu/ops/pallas_stencil.py`` ``stencil_tap_tables_sum``
 (:461; ``pallas_call`` :531, body ``_tts_kernel`` :421).  On CUDA tensors
-the wrapper launches ``csrc/stencil_tap_tables_sum.cu``; on CPU tensors it
-runs :func:`stencil_tap_tables_sum_plain`.  Unlike the TPU kernel it takes
-any C (no 128-lane padding) and writes no per-group partial planes.
+the wrapper launches ``csrc/stencil_tap_tables_sum.cu`` (a lane group per
+output vertex lists its present taps once and loads their rows a batch at
+a time); on CPU tensors it runs :func:`stencil_tap_tables_sum_plain`.
+Unlike the TPU kernel it takes any C (no 128-lane padding) and writes no
+per-group partial planes.
 """
 
 from __future__ import annotations

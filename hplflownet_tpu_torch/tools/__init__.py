@@ -1,15 +1,25 @@
 """The port's op-level tools, run as ``python -m hplflownet_tpu_torch.tools.<name>``.
 
-* ``timing``            the flagship's constants, the CUDA-event timer and
-                        the card's ``nvidia-smi`` line;
+* ``timing``            the flagship's constants, the CUDA-event and
+                        replayed-graph timers and the card's ``nvidia-smi``
+                        line;
 * ``microbench``        every op of the flagship at its real shapes;
 * ``gather_lab``        gather strategies at ``bcn1``'s table, and the
                         ``row_take`` kernel against ``index_select``;
 * ``rank_partial_lab``  the ``rank_partial`` kernel's blocks-per-CTA sweep,
                         beside ``rank_reduce`` and ``blocked_rank_reduce``;
-* ``rank_cases``        seeded edge-case streams for ``blocked_rank_reduce``
-                        and ``rank_partial`` (a module, not a tool).
+* ``kernel_ab``         ``rank_reduce`` and ``stencil_tap_tables_sum``
+                        against another tree's sources, on every input of
+                        one train step, bit for bit and timed in turns;
+* ``rank_cases``        seeded edge-case streams for ``rank_reduce``,
+                        ``blocked_rank_reduce`` and ``rank_partial`` (a
+                        module, not a tool);
+* ``tap_cases``         seeded edge cases for ``stencil_tap_tables_sum`` (a
+                        module);
+* ``step_calls``        the calls one flagship forward and train step make
+                        to those two kernels (a module).
 
 Each tool runs on the CUDA card unless given ``--device cpu`` (toy runs:
-host clock, no device number) and prints one JSON line last.
+host clock, no device number; ``kernel_ab`` needs a card) and prints one
+JSON line last.
 """

@@ -1,11 +1,12 @@
-"""Edge-case streams for the two segmented-sum kernels, made from a seed.
+"""Edge-case streams for the segmented-sum kernels, made from a seed.
 
-:func:`fused_cases` gives ``blocked_rank_reduce``'s (kernel 5) inputs and
-:func:`partial_cases` ``rank_partial``'s (kernel 7), each a list of
-:class:`FusedCase` / :class:`PartialCase` with float32 numpy arrays; the
-tests hold the plain versions against the JAX package on them (on the
-CPU) and ``chip_smoke.py`` holds the kernels against the plain versions
-(on the card) with :func:`to_torch`.
+:func:`fused_cases` gives ``blocked_rank_reduce``'s (kernel 5) inputs,
+:func:`partial_cases` ``rank_partial``'s (kernel 7) and
+:func:`reduce_cases` ``rank_reduce``'s (kernel 2), each a list of
+:class:`FusedCase` / :class:`PartialCase` / :class:`ReduceCase` with
+float32 numpy arrays; the tests hold the plain versions against numpy and
+the JAX package on them (on the CPU) and ``chip_smoke.py`` holds the
+kernels against the plain versions (on the card) with :func:`to_torch`.
 
 Kernel 5's cases, named for what they hold:
 
@@ -33,6 +34,28 @@ to the same bits.
 Kernel 7's cases: local ranks >= 128 (dropped) among shuffled local ranks,
 lanes >= R and negative lanes (weight 0), one channel with plain rows, a
 5-element pitch, C + R = 1028, and R = 1 and 3; M is not a multiple of 128.
+
+Kernel 2's cases are sorted plans over seeded target ids (``ids``, the
+stream ``g = src[perm // R]`` and ``rid = perm % R`` as the splat gathers
+them, or ``src[perm]`` with R = 0), so the JAX package can rebuild the same
+plan, plus two streams no plan gives:
+
+* ``long_run``: one target with 1000 entries among short runs, id -1
+  entries (after every run);
+* ``empty_runs``: two targets in three have no entry; one channel, R 1;
+* ``c3_r2``, ``c5_r0``: pitches of 5 elements (10 / 20 bytes);
+* ``c68_r3``, ``c64_r0``: the splat's and the ``gather_rows`` adjoint's
+  widths, no density;
+* ``c1024_r4``: the slice adjoint's width (2056-byte bf16 rows);
+* ``c1100_r1``: an odd pitch wider than one pass of the kernel's lanes,
+  with densities;
+* ``clamped`` (no plan): runs with ``start < 0``, ``end > M`` and
+  ``end < start``;
+* ``rid_outside`` (no plan): lanes -1 and >= R on some entries (weight 0,
+  no density).
+
+A plan's runs tile the stream in target order, so kernel 5 takes the same
+stream (``meta``, ``start_rows``) and must give the same bits.
 """
 
 from __future__ import annotations
@@ -45,7 +68,8 @@ import torch
 from ..kernels.rank_fused import RANKS, STAGE_ROWS
 from ..kernels.rank_partial import BLOCK
 
-__all__ = ["FusedCase", "PartialCase", "fused_cases", "partial_cases",
+__all__ = ["FusedCase", "PartialCase", "ReduceCase", "fused_cases",
+           "partial_cases", "reduce_cases", "fused_args_from_runs",
            "to_torch", "NO_RANK"]
 
 NO_RANK = 1 << 28          # the fused route's rank of an id -1 entry
@@ -188,13 +212,123 @@ def partial_cases(seed: int = 0) -> list:
     ]
 
 
+@dataclass
+class ReduceCase:
+    name: str
+    g: np.ndarray              # (M, C + R) float32 stream
+    rid: np.ndarray | None     # (M,) int32 lane per entry (None: R = 0)
+    start: np.ndarray          # (T,) int32 run starts
+    end: np.ndarray            # (T,) int32 run ends
+    c: int
+    r: int
+    with_weights: bool
+    ids: np.ndarray | None = None     # (M,) int32 target ids of the plan
+    src: np.ndarray | None = None     # (M / R, C + R) rows | weights, or
+                                      # (M, C) values (R = 0)
+    meta: np.ndarray | None = None    # kernel 5's stream (plans only)
+    start_rows: np.ndarray | None = None
+
+
+def _fused_args(rank, rid, start, m):
+    """Kernel 5's metas and block start rows for a plan's sorted ranks."""
+    rank = np.where(rank >= 0, rank, NO_RANK).astype(np.int64)
+    meta = ((rank << 2) | rid) if rid is not None else rank
+    t = start.shape[0]
+    tp = -(-t // RANKS) * RANKS
+    start_rows = np.concatenate([start, np.full(tp - t, m)])[::RANKS]
+    return meta.astype(np.int32), start_rows.astype(np.int32)
+
+
+def _plan_case(rng, name, ids, t, c, r, with_w):
+    """A sorted plan over target ids (``make_reduce_plan``'s: a stable
+    sort, id -1 last) and the stream the splat (R >= 1) or
+    ``apply_reduce_plan`` (R = 0) gathers through it."""
+    flat = ids.reshape(-1).astype(np.int32)
+    key = np.where(flat < 0, np.iinfo(np.int32).max, flat)
+    perm = np.argsort(key, kind="stable")
+    sk = key[perm]
+    start = np.searchsorted(sk, np.arange(t), "left").astype(np.int32)
+    end = np.searchsorted(sk, np.arange(t), "right").astype(np.int32)
+    m = flat.shape[0]
+    if r:
+        src = _stream(rng, m // r, c, r)
+        g, rid = src[perm // r], (perm % r).astype(np.int32)
+    else:
+        src = rng.randn(m, c).astype(np.float32)
+        g, rid = src[perm], None
+    meta, start_rows = _fused_args(flat[perm], rid, start, m)
+    return ReduceCase(name, g, rid, start, end, c, r, with_w, flat, src,
+                      meta, start_rows)
+
+
+def _ids(rng, n, r, t, absent=0.1):
+    ids = rng.randint(0, t, (n, r) if r else n)
+    return np.where(rng.rand(*ids.shape) < absent, -1, ids).astype(np.int32)
+
+
+def reduce_cases(seed: int = 0) -> list:
+    """Kernel 2's edge cases (see the module's note)."""
+    rng = np.random.RandomState(seed + 2)
+    out = []
+    ids = _ids(rng, 500, 4, 160)
+    ids[:250] = 7                                        # 1000 entries
+    out.append(_plan_case(rng, "long_run", ids, 160, 68, 4, True))
+    out.append(_plan_case(rng, "empty_runs", 3 * _ids(rng, 300, 1, 300, 0.0),
+                          900, 1, 1, True))
+    out.append(_plan_case(rng, "c3_r2", _ids(rng, 400, 2, 200), 200, 3, 2,
+                          True))
+    out.append(_plan_case(rng, "c5_r0", _ids(rng, 600, 0, 200), 200, 5, 0,
+                          False))
+    out.append(_plan_case(rng, "c68_r3", _ids(rng, 300, 3, 100), 100, 68, 3,
+                          False))
+    out.append(_plan_case(rng, "c64_r0", _ids(rng, 900, 0, 300), 300, 64, 0,
+                          False))
+    out.append(_plan_case(rng, "c1024_r4", _ids(rng, 100, 4, 150), 150, 1024,
+                          4, False))
+    out.append(_plan_case(rng, "c1100_r1", _ids(rng, 200, 1, 120), 120, 1100,
+                          1, True))
+    m, t = 700, 200
+    start = rng.randint(-50, m + 50, t)
+    end = start + rng.randint(-5, 40, t)
+    out.append(ReduceCase("clamped", _stream(rng, m, 68, 4),
+                          rng.randint(0, 4, m).astype(np.int32),
+                          start.astype(np.int32), end.astype(np.int32), 68, 4,
+                          True))
+    base = _plan_case(rng, "rid_outside", _ids(rng, 200, 4, 90), 90, 68, 4,
+                      True)
+    rid = base.rid.copy()
+    hit = rng.rand(rid.shape[0]) < 0.15
+    rid[hit] = rng.choice([-1, 4, 7], int(hit.sum()))
+    out.append(ReduceCase("rid_outside", base.g, rid, base.start, base.end,
+                          68, 4, True))
+    return out
+
+
+def fused_args_from_runs(rid, start, end, m: int):
+    """Kernel 5's ``(meta, start_rows)`` (tensors) for runs that tile
+    stream rows [0, end[-1]) in target order, as a rank-mode plan's do
+    (entries past the last run get rank ``NO_RANK``); None for other runs.
+    Reads the runs back to the host."""
+    t = start.shape[0]
+    counts = (end - start).long()
+    if t == 0 or int(start[0]) != 0 or bool((counts < 0).any()) or bool(
+            (start[1:] != end[:-1]).any()) or int(end[-1]) > m:
+        return None
+    rank = torch.full((m,), NO_RANK, dtype=torch.int64, device=start.device)
+    rank[:int(end[-1])] = torch.repeat_interleave(
+        torch.arange(t, device=start.device), counts)
+    meta = (rank << 2) | rid.long() if rid is not None else rank
+    tp = -(-t // RANKS) * RANKS
+    rows = torch.cat([start, start.new_full((tp - t,), m)])[::RANKS]
+    return meta.to(torch.int32).contiguous(), rows.contiguous()
+
+
 def to_torch(case, dtype=torch.float32, device="cpu") -> dict:
     """The case's arrays as tensors on ``device``: the stream in ``dtype``,
     int32 metas, start rows and run bounds."""
     out = {"g": torch.from_numpy(case.g).to(device=device, dtype=dtype)
-           .contiguous(),
-           "meta": torch.from_numpy(case.meta).to(device)}
-    for key in ("start_rows", "rid", "start", "end"):
+           .contiguous()}
+    for key in ("meta", "start_rows", "rid", "start", "end"):
         val = getattr(case, key, None)
         if val is not None:
             out[key] = torch.from_numpy(val).to(device)

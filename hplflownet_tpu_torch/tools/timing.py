@@ -5,6 +5,8 @@
 8192 points per cloud.  :func:`time_ms` times a call with CUDA events on
 the card (warm-up calls first, then the mean over ``reps`` calls), or with
 the host clock on the CPU, whose numbers are no device metric.
+:func:`graph_ms` times one call's device work alone: a CUDA graph of many
+captured calls, replayed, so the wrapper's host time drops out.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import time
 
 import torch
 
-__all__ = ["SFM7", "CAPACITIES", "NUM_POINTS", "time_ms", "clock_name",
-           "card_line", "print_result"]
+__all__ = ["SFM7", "CAPACITIES", "NUM_POINTS", "time_ms", "graph_ms",
+           "clock_name", "card_line", "print_result"]
 
 SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
         [0.5, 1, 1, 1], [0.25, 1, 1, 1], [0.125, 1, 1, 1],
@@ -47,6 +49,33 @@ def time_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, device, calls: int = 20, replays: int = 5) -> float:
+    """Mean device ms of one ``fn()`` call: CUDA events around ``replays``
+    replays of a CUDA graph of ``calls`` captured calls (one warm-up call
+    first, off the capture).  On the CPU: :func:`time_ms` over 2 calls."""
+    if torch.device(device).type != "cuda":
+        return time_ms(fn, device, reps=2, warmup=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
 
 
 def clock_name(device) -> str:

@@ -63,13 +63,37 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
         assert all(r["library_device_ms"] > 0 for r in rows)
     # kernel 5: index_add_ and rank_reduce on 6 rows; kernel 7: index_add_
     # at each bo and output dtype, and bo 32 against bo 8 in both
-    assert [(t["kernel"], t["against"]) for t in results["rank_targets"]] == (
+    assert [(t["kernel"], t["against"]) for t in results["rank_targets"]][:-4] == (
         [("blocked_rank_reduce", "index_add_"),
          ("blocked_rank_reduce", "rank_reduce")] * 6
         + [("rank_partial", "index_add_")] * 4
         + [("rank_partial", "index_add_"), ("rank_partial", "bo=8")] * 2)
     assert all(t["met"] == (t["device_ms"] <= t["factor"] * t["yardstick_ms"])
                for t in results["rank_targets"])
+    # kernels 2 and 4 at every shape of one train step (25 and 5 launches,
+    # 18 of kernel 2's in the forward), on their edge cases in both dtypes,
+    # and their targets (kernel 2 at the scale-2 splat twice and at the
+    # bcn1_ slice adjoint, kernel 4 at corr1)
+    for kind, launches, forward in (("reduce_step", 25, 18), ("tap_step", 5, 0)):
+        rows = results[kind]
+        assert sum(r["launches"] for r in rows) == launches
+        assert sum(r["launches_forward"] for r in rows) == forward
+        assert all(r["device_ms"] > 0 and r["bound_ms"] > 0 for r in rows)
+        assert len({r["shape"] for r in rows}) == len(rows)
+    assert {r["case"] for r in results["reduce_step"]} == {
+        "step splat", "step slice adjoint"}
+    assert all(r["regime"] is None for r in results["reduce_step"])  # CPU
+    assert len(results["reduce_edge"]) == 10 * 2
+    assert sum(r["blocked_rank_reduce_equal"]
+               for r in results["reduce_edge"]) == 8 * 2
+    assert len(results["tap_edge"]) == 5 * 2
+    assert all(r["device_ms"] > 0 for r in results["tap_tables"]
+               + results["take"])
+    assert all(r["library_device_ms"] > 0 for r in results["tap_tables"]
+               + results["take"])
+    assert [(t["kernel"], t["against"]) for t in results["rank_targets"][-4:]] == [
+        ("rank_reduce", "0.017 ms"), ("rank_reduce", "blocked_rank_reduce"),
+        ("rank_reduce", "bound"), ("stencil_tap_tables_sum", "bound")]
     cs.phase_reference()
     results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)))
     results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
@@ -81,10 +105,10 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     assert [k["name"] for k in line["kernels"]] == KERNELS
     for k in line["kernels"]:
         assert KEYS <= set(k)
-        segmented = k["name"] in ("rank_reduce", "blocked_rank_reduce",
-                                  "rank_partial")
-        assert ("device_ms" in k) == segmented
-        assert ("library_device_ms" in k) == segmented
+        timed = k["name"] in ("rank_reduce", "stencil_tap_tables_sum",
+                              "blocked_rank_reduce", "row_take", "rank_partial")
+        assert ("device_ms" in k) == timed
+        assert ("library_device_ms" in k) == timed
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
         assert k["launches"] > 0
 

@@ -619,3 +619,29 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
             torch.testing.assert_close(
                 got, rank_partial_plain(*args, out_dtype=dt),
                 rtol=1e-5 if dt == torch.float32 else 8e-3, atol=1e-4)
+    # kernel 2's edge cases (kernel 5 bit for bit on the plans' streams) and
+    # kernel 4's, both against their plain versions
+    from hplflownet_tpu_torch.tools.rank_cases import reduce_cases
+    from hplflownet_tpu_torch.tools.tap_cases import tap_cases
+    for case in reduce_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            a = to_torch(case, dt, dev)
+            args = (a["g"], a.get("rid"), a["start"], a["end"], case.c,
+                    case.with_weights)
+            got = rank_reduce(*args)
+            assert torch.equal(got, rank_reduce(*args)), case.name
+            torch.testing.assert_close(got, rank_reduce_plain(*args),
+                                       rtol=1e-5, atol=1e-4)
+            if case.meta is not None:
+                assert torch.equal(got, blocked_rank_reduce(
+                    a["g"], a["meta"], a["start_rows"], case.c, case.r,
+                    case.with_weights)[:case.start.shape[0]]), case.name
+    for case in tap_cases():
+        n = torch.from_numpy(case.nb).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(case.tables).to(dev, dt)
+            got = stencil_tap_tables_sum(t, case.c, n)
+            assert torch.equal(got, stencil_tap_tables_sum(t, case.c, n))
+            torch.testing.assert_close(
+                got, stencil_tap_tables_sum_plain(t, case.c, n),
+                rtol=1e-6, atol=1e-5)

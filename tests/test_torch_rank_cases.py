@@ -11,7 +11,13 @@ versions, which are held, in float32 at atol 1e-4 + rtol 1e-5:
   each 128-entry chunk within two aligned 128-rank blocks), and against
   ``rank_reduce`` on the same runs where the stream is a rank-mode plan;
 * kernel 7's against the JAX package's ``blocked_rank_partial`` (interpret
-  mode), whose one-hot form takes every case.
+  mode), whose one-hot form takes every case;
+* kernel 2's (``rank_reduce``) against a numpy float64 reference on every
+  case and, where the case is a plan over target ids, against the JAX
+  package on the same plan (rebuilt from the ids): ``segment._wr_forward``
+  in ``exact_mode()`` and ``blocked_rank_partial`` (interpret mode) +
+  ``segment._combine`` with R >= 1, ``apply_reduce_plan`` with R = 0, and
+  against kernel 5's plain version on the same stream.
 
 The ``cuda``-marked test in ``tests/test_torch_kernels.py`` runs the same
 cases through the CUDA kernels on a card.
@@ -25,6 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from hplflownet_tpu.ops import segment as jseg
+from hplflownet_tpu.ops.dispatch import exact_mode
 from hplflownet_tpu.ops.pallas_stencil import (blocked_rank_partial,
                                                blocked_rank_reduce as jax_brr)
 from hplflownet_tpu_torch.kernels import rank_fused, rank_partial as rp_mod
@@ -32,13 +42,17 @@ from hplflownet_tpu_torch.kernels.rank_fused import (RANKS, STAGE_ROWS,
                                                      blocked_rank_reduce)
 from hplflownet_tpu_torch.kernels.rank_partial import BLOCK, rank_partial
 from hplflownet_tpu_torch.kernels.splat import rank_reduce
-from hplflownet_tpu_torch.tools.rank_cases import (NO_RANK, fused_cases,
-                                                   partial_cases, to_torch)
+from hplflownet_tpu_torch.tools.rank_cases import (NO_RANK,
+                                                   fused_args_from_runs,
+                                                   fused_cases, partial_cases,
+                                                   reduce_cases, to_torch)
 
 FUSED = ["long_run", "empty_block", "decreasing", "outside", "c1_r0",
          "c1_r1", "c3_r2", "c68_r3", "c1024_r4"]
 PARTIAL = ["lrank_ge_128", "lane_ge_r", "c1_r0", "c1_r1", "c3_r2", "c68_r3",
            "c1024_r4"]
+REDUCE = ["long_run", "empty_runs", "c3_r2", "c5_r0", "c68_r3", "c64_r0",
+          "c1024_r4", "c1100_r1", "clamped", "rid_outside"]
 TOL = dict(atol=1e-4, rtol=1e-5)
 CSRC = Path(rank_fused.__file__).resolve().parent.parent / "csrc"
 
@@ -51,6 +65,11 @@ def fcases():
 @pytest.fixture(scope="module")
 def pcases():
     return {c.name: c for c in partial_cases()}
+
+
+@pytest.fixture(scope="module")
+def rcases():
+    return {c.name: c for c in reduce_cases()}
 
 
 def _ranks(case):
@@ -135,9 +154,11 @@ def _jax_preconditions(case):
     return True
 
 
-def test_the_cases_span_the_widths_and_lanes_the_kernels_take(fcases, pcases):
+def test_the_cases_span_the_widths_and_lanes_the_kernels_take(fcases, pcases,
+                                                             rcases):
     assert list(fcases) == FUSED and list(pcases) == PARTIAL
-    for cases in (fcases.values(), pcases.values()):
+    assert list(rcases) == REDUCE
+    for cases in (fcases.values(), pcases.values(), rcases.values()):
         assert {c.r for c in cases} == {0, 1, 2, 3, 4}
         assert {1, 68, 1024} <= {c.c for c in cases}
     assert all(c.g.shape[0] % BLOCK for c in pcases.values())
@@ -209,3 +230,85 @@ def test_partial_edge_case_plain_matches_jax(name, pcases):
     half = rank_partial(a["g"], a["meta"], case.c, case.r, case.with_weights,
                         out_dtype=torch.bfloat16)
     torch.testing.assert_close(half, torch.from_numpy(got).to(torch.bfloat16))
+
+
+def _reduce_property(case):
+    """What kernel 2's case is named for."""
+    m, t = case.g.shape[0], case.start.shape[0]
+    runs = case.end.astype(np.int64) - case.start
+    pitch = case.c + case.r
+    assert (case.ids is None) == (case.meta is None)
+    if case.name == "long_run":
+        assert runs.max() >= 1000 and (case.ids == -1).any()
+    elif case.name == "empty_runs":
+        assert (runs == 0).sum() > t // 2 and (case.c, case.r) == (1, 1)
+    elif case.name in ("c3_r2", "c5_r0"):
+        assert pitch == 5
+    elif case.name in ("c68_r3", "c64_r0", "c1024_r4"):
+        assert not case.with_weights and pitch in (71, 64, 1028)
+    elif case.name == "c1100_r1":
+        assert pitch % 2 and case.with_weights and case.c > 32 * 8 * 4
+    elif case.name == "clamped":
+        assert (case.start < 0).any() and (case.end > m).any()
+        assert (case.end < case.start).any() and case.meta is None
+    elif case.name == "rid_outside":
+        assert (case.rid < 0).any() and (case.rid >= case.r).any()
+
+
+def _numpy_reduce(case):
+    """Float64 sums of float32 products over each clamped run; a lane id
+    outside [0, R) adds nothing (not even to the density)."""
+    g, c, r, m = case.g, case.c, case.r, case.g.shape[0]
+    out = np.zeros((case.start.shape[0], c + int(case.with_weights)))
+    for t, (s, e) in enumerate(zip(case.start, case.end)):
+        for j in range(max(int(s), 0), min(int(e), m)):
+            if not r:
+                out[t] += g[j, :c]
+                continue
+            k = int(case.rid[j])
+            if not 0 <= k < r:
+                continue
+            w = g[j, c + k]
+            out[t, :c] += g[j, :c] * w                     # float32 product
+            if case.with_weights:
+                out[t, c] += w
+    return out
+
+
+@pytest.mark.parametrize("name", REDUCE)
+def test_reduce_edge_case_plain_matches_numpy_and_jax(name, rcases):
+    case = rcases[name]
+    _reduce_property(case)
+    a = to_torch(case)
+    rid = a.get("rid")
+    got = rank_reduce(a["g"], rid, a["start"], a["end"], case.c,
+                      case.with_weights).numpy()
+    np.testing.assert_allclose(got, _numpy_reduce(case), **TOL)
+    if case.ids is None:
+        return
+    t, m, c, r = case.start.shape[0], case.g.shape[0], case.c, case.r
+    plan = jseg.make_reduce_plan(jnp.asarray(case.ids), t)
+    assert np.array_equal(np.asarray(plan.start), case.start)
+    assert np.array_equal(np.asarray(plan.end), case.end)
+    if r:
+        rows, weights = case.src[:, :c], case.src[:, c:]
+        assert np.array_equal(np.asarray(plan.perm) % r, case.rid)
+        with exact_mode():
+            want = jax.jit(lambda p, x, w: jseg._wr_forward(
+                case.with_weights, p, x, w))(plan, rows, weights)
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+        meta = np.asarray(plan.lrank) | (case.rid << 16)
+        partial = jax.jit(lambda gg, mm: blocked_rank_partial(
+            gg, mm, c, r, case.with_weights, interpret=True))(case.g, meta)
+        want = np.asarray(jseg._combine(plan, partial, m))
+    else:
+        want = np.asarray(jax.jit(jseg.apply_reduce_plan)(plan, case.src))
+    np.testing.assert_allclose(got, want, **TOL)
+    # kernel 5's plain version on the same stream, and the same stream
+    # derived from the runs alone
+    fused = blocked_rank_reduce(a["g"], a["meta"], a["start_rows"], c, r,
+                                case.with_weights)
+    np.testing.assert_allclose(got, fused[:t].numpy(), **TOL)
+    derived = fused_args_from_runs(rid, a["start"], a["end"], m)
+    assert torch.equal(derived[0], a["meta"])
+    assert torch.equal(derived[1], a["start_rows"])

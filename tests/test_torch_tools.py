@@ -14,8 +14,8 @@ import pytest
 import torch
 
 import chip_smoke
-from hplflownet_tpu_torch.tools import (gather_lab, microbench,
-                                        rank_partial_lab, timing)
+from hplflownet_tpu_torch.tools import (gather_lab, kernel_ab, microbench,
+                                        rank_partial_lab, step_calls, timing)
 
 TOY = ["--device", "cpu", "--points", "128", "--capacities", "1024", "2048",
        "2048", "1024", "512", "256", "128", "--reps", "1", "--warmup", "0"]
@@ -81,3 +81,37 @@ def test_timer_and_constants(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         microbench.run(reps=1)
+
+
+def test_step_calls_record_groups_calls_by_shape_and_restores_the_ops():
+    from hplflownet_tpu_torch.ops import corr, segment
+    before = (segment.rank_reduce, corr.stencil_tap_tables_sum)
+    g = torch.randn(12, 7)
+    rid = torch.zeros(12, dtype=torch.int32)
+    start = torch.tensor([0, 4], dtype=torch.int32)
+    end = torch.tensor([4, 12], dtype=torch.int32)
+    nb = torch.tensor([[0, -1, 2], [1, 1, -1]], dtype=torch.int32)
+    tabs = torch.randn(3, 2 * 4)
+    with step_calls.record() as found:
+        a = segment.rank_reduce(g, rid, start, end, 5, True)
+        segment.rank_reduce(g, rid, start, end, 5, with_weights=True)
+        segment.rank_reduce(g[:, :5].contiguous(), None, start, end, 5)
+        b = corr.stencil_tap_tables_sum(tabs, 4, nb)
+    assert (segment.rank_reduce, corr.stencil_tap_tables_sum) == before
+    # calls pass through unchanged
+    torch.testing.assert_close(a, segment.rank_reduce(g, rid, start, end, 5, True))
+    torch.testing.assert_close(b, corr.stencil_tap_tables_sum(tabs, 4, nb))
+    assert [(grp["key"], grp["launches"]) for grp in found["rank_reduce"]] == [
+        (dict(M=12, C=5, R=2, T=2, with_weights=True, dtype="float32"), 2),
+        (dict(M=12, C=5, R=0, T=2, with_weights=False, dtype="float32"), 1)]
+    assert found["rank_reduce"][0]["args"]["g"] is g
+    assert [(grp["key"], grp["launches"])
+            for grp in found["stencil_tap_tables_sum"]] == [
+        (dict(H=3, F=2, C=4, H_out=3, dtype="float32"), 1)]
+
+
+def test_kernel_ab_needs_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        kernel_ab.run(str(tmp_path))
+    assert timing.graph_ms(lambda: None, "cpu") >= 0
