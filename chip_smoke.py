@@ -55,13 +55,32 @@ Phases, each printing a line with its elapsed seconds:
             the flow and gradients against the default route bit for bit,
             ms/pair and ms/step of both routes timed in turns; the
             environment is restored afterwards;
-8. tools    the op microbench and the two labs
+8. shallow  ``HPLFlowNetShallow`` at full width (5 scales, SFM5, bf16,
+            the 8192-point pair, capacities SHALLOW_CAPACITIES): a forward
+            and a train step with the launch counts of kernels 1-4 and zero
+            overflow; every kernel call of the step against its plain
+            version on the same inputs (CALL_TOL); the step with the plain
+            versions forced (float32 gradients 1e-3; bf16 flow 5e-2, median
+            leaf 2e-2, and as close to the float32 gradient as the plain
+            bf16 step is, as in phase 6); pairs/s and ms/step; and the
+            float32 64-point pair against the frozen JAX reference
+            tests/data/torch_port_shallow_ref_n64.npz (phase 4's limits);
+9. driver   ``train.driver.run`` on a synthetic FlyingThings3D-layout
+            directory (4 train and 3 val frames of 10240 points): the
+            flagship trained one epoch (bf16, batch 2, capacities measured
+            on the card), every step free of overflow, a finite loss, a
+            ``model_best``, the checkpoint restored bit for bit, then two
+            evaluations from it with six finite metrics, bit-identical;
+            train and evaluation pairs/s and the seconds from ``run`` to
+            its first step, with the kernels' launches in each;
+10. tools   the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
             counts of ``row_take`` and ``rank_partial`` in them;
-9. plans    the CUDA kernels that one pair's stencil plans launch
+11. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; last, as tracing slows the host afterwards).
 
-Then one JSON line listing every kernel, the nvidia-smi line, and as the
+Then one JSON line listing every kernel (with its launches on every path
+above), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before the last line.  ``--phases device,build,kernels`` runs only the
 named phases (and prints no kernels line); ``--out f.json`` writes the
@@ -85,6 +104,12 @@ CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
 NUM_POINTS = 8192
 REF_NPZ = os.path.join("tests", "data", "torch_port_ref_n64.npz")
 TRAIN_REF_NPZ = os.path.join("tests", "data", "torch_port_train_ref_n64.npz")
+# the shallow model: tools/train_synthetic.py's 5-scale map; capacities of
+# lattice.capacity.measured_default_capacities(8192, SFM5)
+SFM5 = [[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1],
+        [0.125, 1, 1, 1], [0.0625, 1, 1, 1]]
+SHALLOW_CAPACITIES = [9472, 3712, 1024, 384, 128]
+SHALLOW_REF_NPZ = os.path.join("tests", "data", "torch_port_shallow_ref_n64.npz")
 DEVICE = "cuda"   # a CPU rehearsal of the phases may set "cpu" after import
 TRAIN_WARMUP, TRAIN_REPS = 2, 5
 DIR_SEED = 5      # seeds the directions of the frozen gradient summary
@@ -1313,11 +1338,7 @@ def phase_train(results):
     import numpy as np
     import torch
     from hplflownet_tpu_torch.kernels import plain_kernels
-    from hplflownet_tpu_torch.kernels.dkernel import stencil_dkernel
-    from hplflownet_tpu_torch.kernels.splat import rank_reduce
-    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
     from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
-    from hplflownet_tpu_torch.kernels.tap_tables import stencil_tap_tables_sum
     from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
     from hplflownet_tpu_torch.models import HPLFlowNet
     from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
@@ -1335,9 +1356,7 @@ def phase_train(results):
                                  on_overflow="skip", device=DEVICE)
     state = init()
 
-    wrappers = {"stencil_gather_matmul": stencil_gather_matmul,
-                "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
-                "stencil_tap_tables_sum": stencil_tap_tables_sum}
+    wrappers = _kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     make_stencil_plan.builds = 0
@@ -1375,10 +1394,6 @@ def phase_train(results):
     sync()
     if any(w.launches != before[k] for k, w in wrappers.items()):
         raise AssertionError("a kernel launched inside plain_kernels()")
-
-    def leaf_rel(a, b):
-        return {k: float((a[k].float() - b[k].float()).abs().max()
-                         / b[k].float().abs().max().clamp_min(1e-30)) for k in b}
 
     def summary(rel):
         worst = max(rel, key=rel.get)
@@ -1539,6 +1554,379 @@ def phase_fused(results):
         + f"; HPL_RANK_FUSED restored to {os.environ.get('HPL_RANK_FUSED')!r}")
 
 
+def _kernel_wrappers() -> dict:
+    """The wrappers of kernels 1-4, the main path's, by name."""
+    from hplflownet_tpu_torch.kernels.dkernel import stencil_dkernel
+    from hplflownet_tpu_torch.kernels.splat import rank_reduce
+    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
+    from hplflownet_tpu_torch.kernels.tap_tables import stencil_tap_tables_sum
+    return {"stencil_gather_matmul": stencil_gather_matmul,
+            "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
+            "stencil_tap_tables_sum": stencil_tap_tables_sum}
+
+
+def _counted(wrappers: dict, fn):
+    """``fn()`` with the wrappers' launch counts set to 0 just before and
+    read just after (the device synchronised) -> (result, counts)."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    sync()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def _require_launches(what: str, launches: dict) -> None:
+    if DEVICE == "cuda":                        # a CPU rehearsal launches nothing
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"{what}: {missing} not launched ({launches})")
+
+
+# where the ops call each kernel of the main path (module globals)
+KERNEL_SITES = {"stencil_gather_matmul": ("ops.bcl", "ops.corr"),
+                "rank_reduce": ("ops.segment",),
+                "stencil_dkernel": ("ops.bcl", "ops.corr"),
+                "stencil_tap_tables_sum": ("ops.corr",)}
+# a kernel call vs its plain version on the same inputs, max|d| / max|plain|:
+# a bf16 output differs by at most an ulp or two (2^-8 of the value), a
+# float32 one by the order of its float32 sums
+CALL_TOL = {"bf16": 1.6e-2, "f32": 1e-4}
+
+
+class recorded_calls:
+    """Within the ``with``, every call the ops make to kernels 1-4 is
+    passed on and recorded as (name, args, kwargs, a copy of the output)."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = [], []
+        for name, sites in KERNEL_SITES.items():
+            for site in sites:
+                mod = importlib.import_module(f"hplflownet_tpu_torch.{site}")
+                wrapper = getattr(mod, name)
+
+                def recorder(*a, _name=name, _wrapper=wrapper, **kw):
+                    out = _wrapper(*a, **kw)
+                    self.calls.append((_name, a, kw, out.detach().clone()))
+                    return out
+                self.saved.append((mod, name, wrapper))
+                setattr(mod, name, recorder)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, wrapper in self.saved:
+            setattr(mod, name, wrapper)
+
+
+def check_calls(calls) -> dict:
+    """Each recorded call again with the plain versions forced: -> per
+    kernel the number of calls and shapes and the worst max|d| / max|plain|;
+    raises past CALL_TOL."""
+    import torch
+    from hplflownet_tpu_torch.kernels import plain_kernels
+    wrappers = _kernel_wrappers()
+    out = {}
+    for name, a, kw, got in calls:
+        with plain_kernels(), torch.no_grad():
+            want = wrappers[name](*a, **kw)
+        tol = CALL_TOL["bf16" if got.dtype == torch.bfloat16 else "f32"]
+        d = float((got.float() - want.float()).abs().max()
+                  / want.float().abs().max().clamp_min(1e-30))
+        shape = (tuple(got.shape), str(got.dtype))
+        if d > tol or got.shape != want.shape:
+            raise AssertionError(f"{name} call at output {shape}: max|d| / "
+                                 f"max|plain| {d:.3e} > {tol}")
+        row = out.setdefault(name, {"calls": 0, "shapes": set(), "worst": 0.0})
+        row["calls"] += 1
+        row["shapes"].add(shape)
+        row["worst"] = max(row["worst"], d)
+    for row in out.values():
+        row["shapes"] = len(row["shapes"])
+    return out
+
+
+def leaf_rel(a: dict, b: dict) -> dict:
+    """Per gradient leaf: max|a - b| / max|b|."""
+    return {k: float((a[k].float() - b[k].float()).abs().max()
+                     / b[k].float().abs().max().clamp_min(1e-30)) for k in b}
+
+
+def phase_shallow(results):
+    """HPLFlowNetShallow at full width on the card: a forward and a train
+    step (launches of kernels 1-4, zero overflow), the same with the plain
+    versions forced, pairs/s and ms/step, and the float32 64-point pair
+    against the frozen JAX reference."""
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.kernels import plain_kernels
+    from hplflownet_tpu_torch.lattice import build_pyramid
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.models import HPLFlowNetShallow
+    from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
+    from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
+    from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
+
+    pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in dict(
+        pc1=pc1, pc2=pc2, sf=pc2 - pc1, valid1=np.ones((1, NUM_POINTS), bool),
+        valid2=np.ones((1, NUM_POINTS), bool)).items()}
+    spec = make_lattice_spec(SFM5, SHALLOW_CAPACITIES)
+    model = HPLFlowNetShallow(SFM5, compute_dtype="bfloat16", device=DEVICE)
+    params_from_jax(seeded_jax_params(model, 0), model)
+    init, step = make_train_step(model, spec, learning_rate=1e-4,
+                                 on_overflow="skip", device=DEVICE)
+    state = init()
+    wrappers = _kernel_wrappers()
+
+    def fwd():
+        return flow_forward(model, spec, pc1[0], pc2[0], adjoint_plans=False)
+
+    flow, fwd_launches = _counted(wrappers, fwd)
+    (new_state, loss, overflow), step_launches = _counted(
+        wrappers, lambda: step.with_overflow(state, batch))
+    log(f"shallow launches: forward {fwd_launches}; train step {step_launches}")
+    _require_launches("shallow forward", {k: fwd_launches[k] for k in
+                                          ("stencil_gather_matmul", "rank_reduce")})
+    _require_launches("shallow train step", step_launches)
+    with torch.inference_mode():
+        scales = build_pyramid(spec, batch["pc1"][0], batch["pc2"][0])
+    oflow = [[int(s.pc1_overflow), int(s.pc2_overflow), int(s.probe_overflow),
+              int(s.stencil_overflow)] for s in scales]
+    counts = [[int(s.pc1_num_valid), int(s.pc2_num_valid)] for s in scales]
+    if int(overflow) != 0 or any(any(o) for o in oflow) \
+            or int(new_state.step) != 1 or not torch.isfinite(loss):
+        raise AssertionError(f"shallow train step: overflow {int(overflow)} "
+                             f"({oflow}), step {int(new_state.step)}, loss "
+                             f"{float(loss)}")
+    out = flow.float().cpu().numpy()
+    if out.shape != (NUM_POINTS, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"shallow flow shape {out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}")
+    log(f"shallow flow {out.shape} finite; overflow 0; vertices per scale "
+        f"{counts} of capacities {SHALLOW_CAPACITIES}")
+
+    # every kernel call of one step on its own inputs, kernel vs plain
+    with recorded_calls() as calls:
+        _, _, g1 = loss_and_grad(model, spec, state.params, batch)
+    per_call = check_calls(calls)
+    del calls
+    log("shallow train step, each kernel call against its plain version on "
+        "the same inputs, max|d| / max|plain| (limits: bf16 out "
+        f"{CALL_TOL['bf16']}, float32 out {CALL_TOL['f32']}): "
+        + "; ".join(f"{k} {v['calls']} calls at {v['shapes']} shapes, worst "
+                    f"{v['worst']:.2e}" for k, v in per_call.items()))
+    # the same forward and gradients with the plain versions forced, and
+    # the float32 gradient (plain) that bf16 rounding is measured against
+    model32 = HPLFlowNetShallow(SFM5, compute_dtype="float32", device=DEVICE)
+    params_from_jax(seeded_jax_params(model32, 0), model32)
+    p32 = dict(model32.named_parameters())
+    _, _, g32 = loss_and_grad(model32, spec, p32, batch)
+    before = {k: w.launches for k, w in wrappers.items()}
+    with plain_kernels():
+        ref = fwd().float().cpu().numpy()
+        _, _, gp = loss_and_grad(model, spec, state.params, batch)
+        _, _, gp32 = loss_and_grad(model32, spec, p32, batch)
+    sync()
+    if any(w.launches != before[k] for k, w in wrappers.items()):
+        raise AssertionError("a kernel launched inside plain_kernels()")
+    rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+    r32 = leaf_rel(g32, gp32)
+    grel, noise, to32 = leaf_rel(g1, gp), leaf_rel(gp, gp32), leaf_rel(g1, gp32)
+    worst = max(grel, key=grel.get)
+    median = float(np.median(list(grel.values())))
+    # bf16 rounds activations and cotangents at every layer, and a one-ulp
+    # flip moves the later layers; at the coarsest scale (83 vertices) that
+    # noise exceeds phase 6's 1e-1 limit on a leaf's max (the plain bf16
+    # step lies up to 0.157 of it from float32 on corr3_refine).  The kernels are held to their plain
+    # versions call by call above; here the bf16 step must be as close to
+    # the float32 gradient as the plain bf16 step is (phase 6's rule) and
+    # its median leaf within 2e-2 of the plain one.
+    w32 = max(r32, key=r32.get)
+    n_worst = max(noise, key=noise.get)
+    t_worst = max(to32, key=to32.get)
+    beyond = sorted(k for k in grel if grel[k] > 1e-1)
+    log(f"shallow, kernels vs plain versions: bf16 flow max rel {rel:.3e} "
+        f"(limit 5e-2); float32 gradients per leaf worst {r32[w32]:.3e} "
+        f"({w32}; limit 1e-3); bf16 gradients worst {grel[worst]:.3e} "
+        f"({worst}), median {median:.3e} (limit 2e-2); distance from the "
+        f"float32 gradient: kernels bf16 {to32[t_worst]:.3e} ({t_worst}), "
+        f"plain bf16 {noise[n_worst]:.3e} ({n_worst}) (limit max(1e-1, 1.5x "
+        f"plain)); leaves past 1e-1 kernels vs plain, with kernels / plain "
+        f"distance from float32: "
+        + (", ".join(f"{k} {grel[k]:.3e} ({to32[k]:.3e} / {noise[k]:.3e})"
+                     for k in beyond) or "none"))
+    if rel > 5e-2 or r32[w32] > 1e-3 or median > 2e-2 \
+            or to32[t_worst] > max(1e-1, 1.5 * noise[n_worst]):
+        raise AssertionError("shallow, kernels vs plain: past a limit (above)")
+    del g1, gp, g32, gp32, model32, p32
+
+    st = [new_state]
+
+    def one():
+        st[0], _ = step(st[0], batch)
+    ms_pair = cuda_ms(fwd, reps=5, warmup=1)
+    ms_step = cuda_ms(one, reps=TRAIN_REPS, warmup=TRAIN_WARMUP)
+    if int(st[0].step) != 1 + TRAIN_WARMUP + TRAIN_REPS:
+        raise AssertionError(f"shallow steps taken: {int(st[0].step)}")
+    results["shallow"] = dict(forward_launches=fwd_launches,
+                              step_launches=step_launches, ms_pair=ms_pair,
+                              pairs_per_s=1e3 / ms_pair, ms_step=ms_step,
+                              flow_rel_plain=rel, grad_rel_plain=grel[worst],
+                              grad_rel_plain_median=median,
+                              grad_rel_plain_f32=r32[w32], per_call=per_call,
+                              bf16_to_f32=to32[t_worst],
+                              plain_bf16_to_f32=noise[n_worst],
+                              leaves_past_1e1=beyond, vertices=counts)
+    log(f"shallow forward ({NUM_POINTS}-point pair, bf16, lattice build included): "
+        f"{ms_pair:.2f} ms/pair = {1e3 / ms_pair:.2f} pairs/s; train step "
+        f"(batch 1, Adam, overflow skip): {ms_step:.2f} ms/step over "
+        f"{TRAIN_REPS} steps after {TRAIN_WARMUP} warm-up")
+
+    # float32, 64 points: the kernels against the frozen JAX reference
+    ref = np.load(SHALLOW_REF_NPZ)
+    model32 = HPLFlowNetShallow(SFM5, compute_dtype="float32", device=DEVICE)
+    params_from_jax(seeded_jax_params(model32, int(ref["seed"])), model32)
+    spec32 = make_lattice_spec(SFM5, [int(c) for c in ref["capacities"]])
+    got = flow_forward(model32, spec32, ref["pc1"][0], ref["pc2"][0],
+                       adjoint_plans=False).cpu().numpy()
+    err = float(np.abs(got - ref["flow"]).max())
+    frel = err / float(np.abs(ref["flow"]).max())
+    if not (got.shape == ref["flow"].shape and err <= 1e-3 and frel <= 5e-3):
+        raise AssertionError(f"shallow n=64 float32 flow vs JAX: max abs "
+                             f"{err:.3e}, max rel {frel:.3e}")
+    n = ref["pc1"].shape[1]
+    loss32, _, g32 = loss_and_grad(
+        model32, spec32, dict(model32.named_parameters()),
+        dict(pc1=ref["pc1"], pc2=ref["pc2"], sf=ref["sf"],
+             valid1=np.ones((1, n), bool), valid2=np.ones((1, n), bool)))
+    rows = check_train_reference(ref, float(loss32), g32)
+    results["shallow"]["reference"] = dict(flow_abs=err, flow_rel=frel, rows=rows)
+    log(f"shallow n=64 float32 through the kernels vs frozen JAX: flow max abs "
+        f"{err:.3e}, max rel {frel:.3e} (limits 1e-3 / 5e-3); train step loss "
+        f"{float(loss32):.8f} (JAX {float(ref['loss']):.8f}), per leaf worst "
+        + "; ".join(f"vs {r['against']}: norm {r['worst_norm']:.2e}, dot/norm "
+                    f"{r['worst_dot']:.2e}" for r in rows))
+
+
+# the driver phase: frames of this many points, sampled to NUM_POINTS
+DRIVER_FRAME_POINTS = 10240
+DRIVER_TRAIN_SEEDS, DRIVER_VAL_SEEDS = (0, 1, 2, 3), (4, 5, 6)
+
+
+def write_ft3d_frames(root: str, n_points: int) -> None:
+    """A FlyingThings3D-layout directory of synthetic frames
+    (``synthetic_frustum_clouds``, one seed a frame), stored with x and z
+    negated as the processed dataset is (the loader flips them back)."""
+    import numpy as np
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    base = os.path.join(root, "FlyingThings3D_subset_processed_35m")
+    for split, seeds in (("train", DRIVER_TRAIN_SEEDS), ("val", DRIVER_VAL_SEEDS)):
+        for i, seed in enumerate(seeds):
+            d = os.path.join(base, split, f"{i:07d}")
+            os.makedirs(d)
+            pcs = synthetic_frustum_clouds(1, n_points, seed=seed)
+            for name, pc in zip(("pc1", "pc2"), pcs):
+                np.save(os.path.join(d, f"{name}.npy"),
+                        pc[0] * np.array([-1, 1, -1], np.float32))
+
+
+def driver_config(root: str) -> dict:
+    """The flagship trained one epoch by ``train.driver.run``:
+    configs/train_ours.yaml's model, data processing and augmentation at
+    batch 2 and bf16, capacities measured on the val set."""
+    cfg = {
+        "ckpt_dir": os.path.join(root, "ckpt"), "data_root": os.path.join(root, "data"),
+        "resume": False, "arch": "HPLFlowNet", "last_relu": False,
+        "allow_less_points": True, "use_leaky": True, "bcn_use_bias": True,
+        "bcn_use_norm": True, "custom_lr": True, "lr_switch_epochs": "0",
+        "lrs": "0.0001", "batch_size": 2, "epochs": 1,
+        "scales_filter_map": SFM7, "dim": 3, "num_points": NUM_POINTS,
+        "compute_dtype": "bfloat16", "evaluate": False,
+        "dataset": "FlyingThings3DSubset", "full": True, "strict": False,
+        "data_process": {"DEPTH_THRESHOLD": 35.0, "NO_CORR": True},
+        "aug_together": {"degree_range": 0.1745329252, "shift_range": 1.0,
+                         "scale_low": 0.95, "scale_high": 1.05,
+                         "jitter_sigma": 0.01, "jitter_clip": 0.0},
+        "aug_pc2": {"degree_range": 0.0, "shift_range": 0.3,
+                    "jitter_sigma": 0.01, "jitter_clip": 0.0},
+        "print_freq": 1, "workers": 2}
+    if DEVICE == "cpu":
+        cfg["platform"] = "cpu"
+    return cfg
+
+
+def phase_driver(results):
+    """``train.driver.run`` end to end: the flagship trained one epoch on a
+    synthetic FT3D-layout directory, then evaluated twice from the
+    checkpoint."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.train.checkpoint import CheckpointIO
+    from hplflownet_tpu_torch.train.driver import run
+    from hplflownet_tpu_torch.utils.config import Config, postprocess
+    metrics = ("epe3d", "acc3ds", "acc3dr", "outliers", "epe2d", "acc2d")
+    wrappers = _kernel_wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ft3d_frames(os.path.join(tmp, "data"), DRIVER_FRAME_POINTS)
+        cfg = driver_config(tmp)
+        trained, train_launches = _counted(
+            wrappers, lambda: run(postprocess(Config(cfg))))
+        _require_launches("driver training", train_launches)
+        if trained["overflowed_steps"] or not np.isfinite(trained["train_epe3d"]) \
+                or not np.isfinite(trained["min_val_epe3d"]):
+            raise AssertionError(f"driver training: {trained['overflowed_steps']} "
+                                 f"steps overflowed, train EPE3D "
+                                 f"{trained['train_epe3d']}, val "
+                                 f"{trained['min_val_epe3d']}")
+        io = CheckpointIO(cfg["ckpt_dir"])
+        if not io.exists("model_best"):
+            raise AssertionError("driver training wrote no model_best")
+        state = trained["state"]
+        restored, epoch, _ = io.restore(state)
+        differ = [k for k in state.params
+                  if not torch.equal(restored.params[k], state.params[k])]
+        if differ or epoch != 1:
+            raise AssertionError(f"restored checkpoint (epoch {epoch}) differs "
+                                 f"from the trained state: {differ[:5]}")
+        ev = dict(cfg, evaluate=True, resume=cfg["ckpt_dir"])
+        (first, second), eval_launches = _counted(
+            wrappers, lambda: (run(postprocess(Config(ev))),
+                               run(postprocess(Config(ev)))))
+        _require_launches("driver evaluation", {k: eval_launches[k] for k in
+                                                ("stencil_gather_matmul",
+                                                 "rank_reduce")})
+        bad = [k for k in metrics if not np.isfinite(first[k])]
+        differ = [k for k in metrics if first[k] != second[k]]
+        if bad or differ or first["overflowed_batches"]:
+            raise AssertionError(f"driver evaluation: non-finite {bad}, differ "
+                                 f"between two runs {differ}, overflowed "
+                                 f"batches {first['overflowed_batches']}")
+    results["driver"] = dict(
+        train_launches=train_launches, eval_launches=eval_launches,
+        train_pairs_per_s=trained["train_pairs_per_s"],
+        train_first_step_s=trained["seconds_to_first_step"],
+        eval_pairs_per_s=[first["pairs_per_s"], second["pairs_per_s"]],
+        eval_first_step_s=[first["seconds_to_first_step"],
+                           second["seconds_to_first_step"]],
+        metrics={k: first[k] for k in metrics},
+        train_epe3d=trained["train_epe3d"], val_epe3d=trained["min_val_epe3d"])
+    log(f"driver launches: training {train_launches}; two evaluations "
+        f"{eval_launches}")
+    log(f"driver (flagship, bf16, batch 2, {len(DRIVER_TRAIN_SEEDS)} train / "
+        f"{len(DRIVER_VAL_SEEDS)} val frames of {DRIVER_FRAME_POINTS} points "
+        f"sampled to {NUM_POINTS}): train {trained['train_pairs_per_s']:.2f} "
+        f"pairs/s (StepTimer), {trained['seconds_to_first_step']:.2f} s from "
+        f"run() to the end of the first step, 0 overflowed steps, train EPE3D "
+        f"{trained['train_epe3d']:.4f}, val {trained['min_val_epe3d']:.4f}; "
+        f"checkpoint restored bit for bit; evaluation "
+        f"{first['pairs_per_s']:.2f} / {second['pairs_per_s']:.2f} pairs/s, "
+        f"{first['seconds_to_first_step']:.2f} / "
+        f"{second['seconds_to_first_step']:.2f} s to the first batch's end; "
+        f"six metrics bit-identical twice: "
+        + ", ".join(f"{k} {first[k]:.4f}" for k in metrics))
+
+
 def phase_tools(results):
     """The op microbench and both labs at few reps: row_take and
     rank_partial must launch there."""
@@ -1631,6 +2019,16 @@ def kernels_line(results) -> dict:
             max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
             **({"launches_forward": launches_fwd[name]}
                if name in launches_fwd else {})))
+    # the later paths' launches, each counted over its own run
+    shallow, driver = results.get("shallow", {}), results.get("driver", {})
+    for row in out:
+        for key, counts in (
+                ("launches_shallow_step", shallow.get("step_launches", {})),
+                ("launches_shallow_forward", shallow.get("forward_launches", {})),
+                ("launches_driver_train", driver.get("train_launches", {})),
+                ("launches_driver_eval", driver.get("eval_launches", {}))):
+            if row["name"] in counts:
+                row[key] = counts[row["name"]]
     return {"kernels": out}
 
 
@@ -1682,6 +2080,8 @@ def main(argv=None) -> int:
               ("main path", lambda: phase_main_path(results)),
               ("train", lambda: phase_train(results)),
               ("fused", lambda: phase_fused(results)),
+              ("shallow", lambda: phase_shallow(results)),
+              ("driver", lambda: phase_driver(results)),
               ("tools", lambda: phase_tools(results)),
               ("plans", lambda: phase_plans(results))]
     only = None if args.phases is None else args.phases.split(",")

@@ -43,7 +43,8 @@ def stencil_plans(scales, lists: bool = True) -> list:
     """Per scale, the stencil plan of each neighbour table the model reads
     (``kernels.stencil_plan``): ``pc1_blur`` and ``pc2_blur`` at every
     scale (the decoder reuses ``pc1_blur``), ``pc1_corr`` and ``pc2_corr``
-    at the correlation scales 2..6.  Made once per pair, together
+    from scale 2 on, where both models correlate (2..6 in the 7-scale
+    model, 2..4 in the shallow one).  Made once per pair, together
     (:func:`make_stencil_plans`: one sort per tap count); ``lists`` as
     there (the weight gradient's vertex lists)."""
     names, tables = [], []
@@ -63,7 +64,95 @@ def stencil_plans(scales, lists: bool = True) -> list:
     return plans
 
 
-class HPLFlowNet(nn.Module):
+class _LatticeFlowNet(nn.Module):
+    """What both models share: the layer constructors over one
+    ``scales_filter_map`` and the encoder / correlation / decoder calls
+    over one pair's pyramid and stencil plans."""
+
+    def __init__(self, scales_filter_map, num_scales: int, dim: int,
+                 use_leaky: bool, bcn_use_bias: bool, bcn_use_norm: bool,
+                 last_relu: bool, compute_dtype, device):
+        super().__init__()
+        assert len(scales_filter_map) == num_scales, \
+            f"{type(self).__name__} needs {num_scales} scales"
+        self._sfm = [list(row) for row in scales_filter_map]
+        self._dim = dim
+        self._flags = dict(use_leaky=use_leaky, bcn_use_bias=bcn_use_bias,
+                           bcn_use_norm=bcn_use_norm, last_relu=last_relu)
+        self._device = resolve_device(device)
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    def _fs(self, radius) -> int:
+        return filter_size(int(radius), self._dim)
+
+    def _bcn(self, i, widths, num_input, do_splat):
+        f, radius = self._flags, int(self._sfm[i][1])
+        return BilateralConv(widths, self._fs(radius), num_input,
+                             do_splat=do_splat, do_slice=not do_splat,
+                             use_norm=f["bcn_use_norm"],
+                             use_bias=f["bcn_use_bias"],
+                             use_leaky=f["use_leaky"],
+                             last_relu=f["last_relu"],
+                             compute_dtype=self.compute_dtype,
+                             tap_negation=tap_negation(radius, self._dim),
+                             device=self._device)
+
+    def _corr(self, i, corr_widths, widths, prev_dim):
+        f = self._flags
+        return BilateralCorrelation(corr_widths, widths,
+                                    self._fs(self._sfm[i][3]),
+                                    self._fs(self._sfm[i][2]), 64,
+                                    prev_corr_dim=prev_dim,
+                                    use_norm=f["bcn_use_norm"],
+                                    use_leaky=f["use_leaky"],
+                                    last_relu=f["last_relu"],
+                                    compute_dtype=self.compute_dtype,
+                                    corr_tap_negation=tap_negation(
+                                        int(self._sfm[i][3]), self._dim),
+                                    device=self._device)
+
+    def _mlp(self, widths, in_dim, last_act: bool = True):
+        return PointMLP(widths, in_dim, use_leaky=self._flags["use_leaky"],
+                        last_act=last_act, compute_dtype=self.compute_dtype,
+                        device=self._device)
+
+    def _emg1(self, sp):
+        # el_minus_gr is builder data (f32); cast once so the decoder
+        # concats stay in the compute dtype
+        return sp.pc1_el_minus_gr.to(self.compute_dtype)
+
+    def _down(self, mod, scales, plans, s, f1, f2):
+        sp = scales[s]
+        o1 = mod(_cat(self._emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
+                 splat_plan=sp.pc1_splat_plan,
+                 blur_neighbors=sp.pc1_blur_neighbors,
+                 blur_plan=plans[s]["pc1_blur"])
+        o2 = mod(_cat(sp.pc2_el_minus_gr.to(self.compute_dtype), f2),
+                 in_barycentric=sp.pc2_barycentric,
+                 splat_plan=sp.pc2_splat_plan,
+                 blur_neighbors=sp.pc2_blur_neighbors,
+                 blur_plan=plans[s]["pc2_blur"])
+        return o1, o2
+
+    def _correlate(self, mod, scales, plans, s, f1, f2, prev):
+        sp = scales[s]
+        return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
+                   sp.pc1_corr_indices, sp.pc2_corr_uniq,
+                   sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv,
+                   self_plan=plans[s]["pc1_corr"],
+                   cross_plan=plans[s]["pc2_corr"])
+
+    def _up(self, mod, scales, plans, feats, s):
+        # blur on scale s's lattice, slice onto scale s's points
+        sp = scales[s]
+        return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
+                   out_barycentric=sp.pc1_barycentric,
+                   out_lattice_offset=sp.pc1_lattice_offset,
+                   out_splat_plan=sp.pc1_splat_plan,
+                   blur_plan=plans[s]["pc1_blur"])
+
+
+class HPLFlowNet(_LatticeFlowNet):
     """Args mirror the JAX module's (and the reference's config surface)."""
 
     def __init__(self, scales_filter_map: Sequence[Sequence[float]],
@@ -71,93 +160,45 @@ class HPLFlowNet(nn.Module):
                  bcn_use_bias: bool = True, bcn_use_norm: bool = True,
                  last_relu: bool = False, compute_dtype="float32",
                  device=None):
-        super().__init__()
-        assert len(scales_filter_map) == 7, "HPLFlowNet needs 7 scales"
-        device = resolve_device(device)
-        d, d1 = dim, dim + 1
-        sfm = scales_filter_map
-        dt = _DTYPES[compute_dtype]
-        self.compute_dtype = dt
-
-        def fs(radius):
-            return filter_size(int(radius), d)
-
-        def bcn(i, widths, num_input, do_splat):
-            return BilateralConv(widths, fs(sfm[i][1]), num_input,
-                                 do_splat=do_splat, do_slice=not do_splat,
-                                 use_norm=bcn_use_norm, use_bias=bcn_use_bias,
-                                 use_leaky=use_leaky, last_relu=last_relu,
-                                 compute_dtype=dt,
-                                 tap_negation=tap_negation(int(sfm[i][1]), d),
-                                 device=device)
-
-        def corr(i, prev_dim):
-            return BilateralCorrelation((32, 32), (64, 64), fs(sfm[i][3]),
-                                        fs(sfm[i][2]), 64,
-                                        prev_corr_dim=prev_dim,
-                                        use_norm=bcn_use_norm,
-                                        use_leaky=use_leaky,
-                                        last_relu=last_relu,
-                                        compute_dtype=dt,
-                                        corr_tap_negation=tap_negation(
-                                            int(sfm[i][3]), d),
-                                        device=device)
-
-        self.conv1 = PointMLP((32, 32, 64), dim, use_leaky=use_leaky,
-                              compute_dtype=dt, device=device)
+        super().__init__(scales_filter_map, 7, dim, use_leaky, bcn_use_bias,
+                         bcn_use_norm, last_relu, compute_dtype, device)
+        d1 = dim + 1
+        self.conv1 = self._mlp((32, 32, 64), dim)
         for i in range(7):
-            setattr(self, f"bcn{i + 1}", bcn(i, (64, 64), d1 + 64, True))
+            setattr(self, f"bcn{i + 1}", self._bcn(i, (64, 64), d1 + 64, True))
         # decoder input widths: [emg (d1) | decoder out | corr out | skip]
         dec = [(1024, d1 + 512 + 64), (512, d1 + 256 + 64),
                (256, d1 + 256 + 64 + 64), (256, d1 + 128 + 64 + 64),
                (128, d1 + 128 + 64 + 64), (128, d1 + 128 + 64 + 64),
                (128, 64 + 64)]
         for i, (w, c_in) in enumerate(dec):
-            setattr(self, f"bcn{i + 1}_", bcn(i, (w, w), c_in, False))
+            setattr(self, f"bcn{i + 1}_", self._bcn(i, (w, w), c_in, False))
         for k, prev in enumerate((0, 64, 64, 64, 64)):
-            setattr(self, f"corr{k + 1}", corr(k + 2, prev))
-        self.conv2 = PointMLP((1024,), 1024, use_leaky=use_leaky,
-                              compute_dtype=dt, device=device)
-        self.conv3 = PointMLP((512,), 1024, use_leaky=use_leaky,
-                              compute_dtype=dt, device=device)
-        self.conv4 = PointMLP((3,), 512, last_act=False,
-                              compute_dtype=dt, device=device)
+            setattr(self, f"corr{k + 1}",
+                    self._corr(k + 2, (32, 32), (64, 64), prev))
+        self.conv2 = self._mlp((1024,), 1024)
+        self.conv3 = self._mlp((512,), 1024)
+        self.conv4 = self._mlp((3,), 512, last_act=False)
 
     def forward(self, pc1: torch.Tensor, pc2: torch.Tensor, scales) -> torch.Tensor:
         """pc1, pc2: (N, dim) points; scales: the 7 ``ScalePair`` tables.
 
         Returns the (N, 3) float32 scene flow of pc1.
         """
-        dt = self.compute_dtype
         plans = stencil_plans(scales, lists=torch.is_grad_enabled())
+        emg1 = self._emg1
 
-        def emg1(sp):
-            return sp.pc1_el_minus_gr.to(dt)
+        def down(mod, s, f1, f2):
+            return self._down(mod, scales, plans, s, f1, f2)
+
+        def correlate(mod, s, f1, f2, prev):
+            return self._correlate(mod, scales, plans, s, f1, f2, prev)
+
+        def up(mod, feats, s):
+            return self._up(mod, scales, plans, feats, s)
 
         feat1 = self.conv1(pc1)
         feat2 = self.conv1(pc2)
-
-        def down(mod, s, f1, f2):
-            sp = scales[s]
-            o1 = mod(_cat(emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
-                     splat_plan=sp.pc1_splat_plan,
-                     blur_neighbors=sp.pc1_blur_neighbors,
-                     blur_plan=plans[s]["pc1_blur"])
-            o2 = mod(_cat(sp.pc2_el_minus_gr.to(dt), f2),
-                     in_barycentric=sp.pc2_barycentric,
-                     splat_plan=sp.pc2_splat_plan,
-                     blur_neighbors=sp.pc2_blur_neighbors,
-                     blur_plan=plans[s]["pc2_blur"])
-            return o1, o2
-
-        def correlate(mod, s, f1, f2, prev):
-            sp = scales[s]
-            return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
-                       sp.pc1_corr_indices, sp.pc2_corr_uniq,
-                       sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv,
-                       self_plan=plans[s]["pc1_corr"],
-                       cross_plan=plans[s]["pc2_corr"])
-
         p1o1, p2o1 = down(self.bcn1, 0, feat1, feat2)
         p1o2, p2o2 = down(self.bcn2, 1, p1o1, p2o1)
         p1o3, p2o3 = down(self.bcn3, 2, p1o2, p2o2)
@@ -170,15 +211,6 @@ class HPLFlowNet(nn.Module):
         c4 = correlate(self.corr4, 5, p1o6, p2o6, c3)
         p1o7, p2o7 = down(self.bcn7, 6, p1o6, p2o6)
         c5 = correlate(self.corr5, 6, p1o7, p2o7, c4)
-
-        def up(mod, feats, s):
-            # blur on scale s's lattice, slice onto scale s's points
-            sp = scales[s]
-            return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
-                       out_barycentric=sp.pc1_barycentric,
-                       out_lattice_offset=sp.pc1_lattice_offset,
-                       out_splat_plan=sp.pc1_splat_plan,
-                       blur_plan=plans[s]["pc1_blur"])
 
         out = up(self.bcn7_, _cat(c5, p1o7), 6)
         out = up(self.bcn6_, _cat(emg1(scales[6]), out, c4, p1o6), 5)

@@ -1,11 +1,13 @@
-"""Where the flagship forward's (or train step's) time goes on the card.
+"""Where the forward's (or train step's) time goes on the card, per model.
 
     python -m hplflownet_tpu_torch.profile_forward [--points 8192]
         [--dtype bfloat16] [--reps 5] [--train] [--out profile.json]
+        [--arch HPLFlowNet|HPLFlowNetShallow]
 
 Runs ``pipeline.flow_forward`` on one synthetic FT3D-like pair at full
-width (the 7-scale map and the flagship capacities), with seeded weights,
-and reports:
+width (the 7-scale map and the flagship capacities, or with ``--arch
+HPLFlowNetShallow`` the shallow model's 5-scale map and capacities), with
+seeded weights, and reports:
 
 * the forward's time per pair with CUDA events, and the same split into
   the lattice build and the model;
@@ -31,7 +33,11 @@ import time
 
 import torch
 
-from .tools.timing import CAPACITIES, SFM7, card_line, time_ms
+from .tools.timing import (CAPACITIES, SFM5, SFM7, SHALLOW_CAPACITIES,
+                           card_line, time_ms)
+
+_ARCHS = {"HPLFlowNet": (SFM7, CAPACITIES),
+          "HPLFlowNetShallow": (SFM5, SHALLOW_CAPACITIES)}
 
 _GROUPS = (("stencil_gather_matmul", ("stencil_wgmma_kernel", "stencil_f32_kernel")),
            ("stencil_dkernel", ("dkernel_wgmma", "dkernel_f32", "sum_slabs")),
@@ -103,6 +109,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
+    ap.add_argument("--arch", choices=sorted(_ARCHS), default="HPLFlowNet",
+                    help="the model, at its map and capacities")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args(argv)
@@ -111,7 +119,7 @@ def main(argv=None) -> dict:
 
     from .lattice import build_pyramid
     from .lattice.capacity import synthetic_frustum_clouds
-    from .models import HPLFlowNet
+    from .models import MODELS
     from .params import params_from_jax, seeded_jax_params
     from .pipeline import flow_forward, make_lattice_spec
     from .train.step import make_train_step
@@ -119,13 +127,14 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     pc1, pc2 = synthetic_frustum_clouds(1, args.points, seed=args.seed)
-    spec = make_lattice_spec(SFM7, CAPACITIES)
-    model = HPLFlowNet(SFM7, compute_dtype=args.dtype, device=dev)
+    sfm, capacities = _ARCHS[args.arch]
+    spec = make_lattice_spec(sfm, capacities)
+    model = MODELS[args.arch](sfm, compute_dtype=args.dtype, device=dev)
     params_from_jax(seeded_jax_params(model, args.seed), model)
     t1 = torch.from_numpy(pc1[0]).to(dev)
     t2 = torch.from_numpy(pc2[0]).to(dev)
     result = dict(device=torch.cuda.get_device_name(0), card=card_line(),
-                  dtype=args.dtype, points=args.points)
+                  arch=args.arch, dtype=args.dtype, points=args.points)
     print(f"device: {result['device']} ({result['card']})")
 
     if args.train:

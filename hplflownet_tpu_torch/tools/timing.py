@@ -2,7 +2,10 @@
 
 ``SFM7``, ``CAPACITIES`` and ``NUM_POINTS`` are the JAX bench's flagship
 (``bench.py:29-35``): the 7-scale map, its per-scale vertex capacities and
-8192 points per cloud.  :func:`time_ms` times a call with CUDA events on
+8192 points per cloud; ``SFM5`` and ``SHALLOW_CAPACITIES`` the shallow
+model's (``tools/train_synthetic.py``'s map, capacities of
+``lattice.capacity.measured_default_capacities(8192, SFM5)``).
+:func:`time_ms` times a call with CUDA events on
 the card (warm-up calls first, then the mean over ``reps`` calls), or with
 the host clock on the CPU, whose numbers are no device metric.
 :func:`graph_ms` times one call's device work alone: a CUDA graph of many
@@ -17,13 +20,16 @@ import time
 
 import torch
 
-__all__ = ["SFM7", "CAPACITIES", "NUM_POINTS", "time_ms", "graph_ms",
-           "clock_name", "card_line", "print_result"]
+__all__ = ["SFM7", "CAPACITIES", "SFM5", "SHALLOW_CAPACITIES", "NUM_POINTS",
+           "time_ms", "graph_ms", "clock_name", "card_line", "print_result"]
 
 SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
         [0.5, 1, 1, 1], [0.25, 1, 1, 1], [0.125, 1, 1, 1],
         [0.0625, 1, 1, 1]]
 CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
+SFM5 = [[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1],
+        [0.125, 1, 1, 1], [0.0625, 1, 1, 1]]
+SHALLOW_CAPACITIES = [9472, 3712, 1024, 384, 128]
 NUM_POINTS = 8192
 
 

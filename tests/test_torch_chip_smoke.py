@@ -3,8 +3,8 @@
 On the CPU every kernel wrapper runs its plain version, so the comparisons
 are trivially equal; what this checks is the script itself: shapes, tables,
 tolerances, the frozen-reference phase (forward and train step), the train,
-fused-route and tools phases and the contract keys of the kernels line, so
-that a chip run does not fail on a Python error.
+fused-route, shallow-model, driver and tools phases and the contract keys
+of the kernels line, so that a chip run does not fail on a Python error.
 """
 
 import json
@@ -33,6 +33,9 @@ def small_cpu_smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "TOOLS_WIDTH_DIV", 8)
     monkeypatch.setattr(chip_smoke, "TOOLS_SORT_SIZES", (4096,))
     monkeypatch.setattr(chip_smoke, "LAB_SIZES", (1280,))
+    # lattice.capacity.measured_default_capacities(128, SFM5)
+    monkeypatch.setattr(chip_smoke, "SHALLOW_CAPACITIES", [768, 1024, 640, 256, 128])
+    monkeypatch.setattr(chip_smoke, "DRIVER_FRAME_POINTS", 160)
     return chip_smoke
 
 
@@ -101,6 +104,12 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     results["fused_forward_launches"] = {"blocked_rank_reduce": 18,
                                          "rank_reduce": 0}
     results["tools_launches"] = {"row_take": 5, "rank_partial": 52}
+    results["shallow"] = {"step_launches": dict(zip(TRAIN_KERNELS, (33, 15, 19, 3))),
+                          "forward_launches": {"stencil_gather_matmul": 19,
+                                               "rank_reduce": 10}}
+    results["driver"] = {"train_launches": dict.fromkeys(TRAIN_KERNELS, 9),
+                         "eval_launches": {"stencil_gather_matmul": 7,
+                                           "rank_reduce": 7}}
     line = json.loads(json.dumps(cs.kernels_line(results)))
     assert [k["name"] for k in line["kernels"]] == KERNELS
     for k in line["kernels"]:
@@ -111,6 +120,11 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
         assert ("library_device_ms" in k) == timed
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
         assert k["launches"] > 0
+        on_path = k["name"] in TRAIN_KERNELS
+        for key in ("launches_shallow_step", "launches_driver_train"):
+            assert (key in k) == on_path
+    assert line["kernels"][0]["launches_shallow_forward"] == 19
+    assert line["kernels"][1]["launches_driver_eval"] == 7
 
 
 def test_train_phase_runs_and_launches_nothing_on_the_cpu(small_cpu_smoke):
@@ -141,3 +155,33 @@ def test_fused_and_tools_phases_run_on_the_cpu(small_cpu_smoke, monkeypatch):
     assert results["plans"]["kernels_forward"] is None
     assert [t["tool"] for t in results["tools"].values()] == [
         "microbench", "gather_lab", "rank_partial_lab"]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Thousands of small ops: one intra-op thread keeps them from spinning
+    against the other test processes' threads."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_shallow_and_driver_phases_run_on_the_cpu(small_cpu_smoke, one_torch_thread):
+    """The shallow model's phase (forward, step, plain compare, frozen JAX
+    reference) and the driver's (train one epoch, checkpoint, evaluate
+    twice) at a small size; on the CPU nothing launches."""
+    results = {}
+    small_cpu_smoke.phase_shallow(results)
+    sh = results["shallow"]
+    assert sh["step_launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert sh["ms_pair"] > 0 and sh["ms_step"] > 0
+    assert [r["against"] for r in sh["reference"]["rows"]] == ["jax", "exact"]
+    small_cpu_smoke.phase_driver(results)
+    dr = results["driver"]
+    assert dr["train_launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert dr["train_pairs_per_s"] > 0 and dr["train_first_step_s"] > 0
+    assert len(dr["eval_pairs_per_s"]) == 2 and min(dr["eval_pairs_per_s"]) > 0
+    assert set(dr["metrics"]) == {"epe3d", "acc3ds", "acc3dr", "outliers",
+                                  "epe2d", "acc2d"}
