@@ -76,7 +76,26 @@ Phases, each printing a line with its elapsed seconds:
 10. tools   the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
             counts of ``row_take`` and ``rank_partial`` in them;
-11. plans   the CUDA kernels that one pair's stencil plans launch
+11. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
+            (pairs/s, train ms/step, launches, the card), kernels 1-4
+            launched in its step;
+12. synthetic  ``tools.train_synthetic`` (the shallow model, 1024 points, 8
+            steps, ``--save-params``), ``tools.eval_synthetic`` on that
+            pickle through the driver with the scene dumps, and
+            ``data.visualization``'s CLI on them: six finite metrics, zero
+            overflow, the .ply and .html files, the rates;
+13. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
+            on the one card, fresh interpreters started by
+            ``tools.dryrun_multiprocess``, take one step of the flagship
+            (float32, 8192 points, global batch 2, the second sample's
+            valid1 cut to half), held to the single-process step on the
+            whole batch (loss 1e-6 relative, each gradient leaf 1e-5 of its
+            max, parameters after Adam within tests/test_sharding.py's
+            bounds) and to each other bit for bit; then one NCCL rank at
+            world size 1, bit for bit against the single-process step on
+            one sample; kernels 1-4 launched in every rank, the step's ms
+            (after the phases it could slow: it starts NCCL in this process);
+14. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; last, as tracing slows the host afterwards).
 
 Then one JSON line listing every kernel (with its launches on every path
@@ -1556,23 +1575,20 @@ def phase_fused(results):
 
 def _kernel_wrappers() -> dict:
     """The wrappers of kernels 1-4, the main path's, by name."""
-    from hplflownet_tpu_torch.kernels.dkernel import stencil_dkernel
-    from hplflownet_tpu_torch.kernels.splat import rank_reduce
-    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
-    from hplflownet_tpu_torch.kernels.tap_tables import stencil_tap_tables_sum
-    return {"stencil_gather_matmul": stencil_gather_matmul,
-            "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
-            "stencil_tap_tables_sum": stencil_tap_tables_sum}
+    from hplflownet_tpu_torch.kernels import main_path_wrappers
+    return main_path_wrappers()
 
 
 def _counted(wrappers: dict, fn):
     """``fn()`` with the wrappers' launch counts set to 0 just before and
     read just after (the device synchronised) -> (result, counts)."""
-    for w in wrappers.values():
-        w.launches = 0
-    out = fn()
-    sync()
-    return out, {k: w.launches for k, w in wrappers.items()}
+    from hplflownet_tpu_torch.kernels import count_launches
+
+    def run():
+        out = fn()
+        sync()
+        return out
+    return count_launches(run, wrappers)
 
 
 def _require_launches(what: str, launches: dict) -> None:
@@ -1957,6 +1973,188 @@ def phase_tools(results):
             f"{k} {v:.4f} ms" for k, v in tool["ms"].items()))
 
 
+# the dp phase: the flagship at full width in float32, global batch 2, the
+# second sample's valid1 cut to half; Adam at lr 1e-3 (the bounds below)
+DP_CASE = dict(arch="HPLFlowNet", sfm=SFM7, capacities=CAPACITIES,
+               global_batch=2, data="frustum", seed=0, lr=1e-3,
+               compute_dtype="float32", valid1=[1.0, 0.5], steps=3)
+DP_LOSS_RTOL, DP_GRAD_TOL = 1e-6, 1e-5        # loss; per leaf, of its max
+DP_PARAM_MAX, DP_PARAM_FRAC = 2.5e-3, 1e-3    # tests/test_sharding.py:55-64
+
+
+def _dp_check(what, loss, grads, params, ref_loss, ref_grads, ref_params) -> dict:
+    """Hold a data-parallel step to the single-process one (tensors)."""
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    grad = leaf_rel(grads, ref_grads)
+    diffs = {k: (params[k].float() - ref_params[k].float()).abs() for k in ref_params}
+    pmax = max(float(d.max()) for d in diffs.values())
+    pfrac = max(float((d > 1e-4).float().mean()) for d in diffs.values())
+    if rel > DP_LOSS_RTOL or max(grad.values()) > DP_GRAD_TOL \
+            or pmax > DP_PARAM_MAX or pfrac >= DP_PARAM_FRAC:
+        raise AssertionError(
+            f"{what} vs the single-process step: loss {rel:.3e} (<= {DP_LOSS_RTOL}), "
+            f"worst gradient leaf {max(grad.values()):.3e} (<= {DP_GRAD_TOL}), "
+            f"params max {pmax:.3e} (<= {DP_PARAM_MAX}), share above 1e-4 "
+            f"{pfrac:.3e} (< {DP_PARAM_FRAC})")
+    return {"loss_rel": rel, "grad_worst": max(grad.values()),
+            "param_max": pmax, "param_share_above_1e-4": pfrac}
+
+
+def phase_dp(results):
+    """Data parallel: two gloo ranks on the one card (fresh interpreters,
+    ``tools.dryrun_multiprocess``) take one ``make_dp_train_step`` step on
+    the flagship, held to the single-process step on the whole batch; then
+    one NCCL rank at world size 1, bit for bit against the single-process
+    step on one sample."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from hplflownet_tpu_torch.kernels import count_launches
+    from hplflownet_tpu_torch.parallel import (global_mesh, initialize,
+                                               make_dp_train_step)
+    from hplflownet_tpu_torch.tools import dryrun_multiprocess as dryrun
+    from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
+    case = dict(DP_CASE, num_points=NUM_POINTS, capacities=CAPACITIES)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = dryrun.run(case, procs=2, device=DEVICE, backend="gloo",
+                         save_dir=tmp, timeout=600)
+        ranks = [torch.load(os.path.join(tmp, f"rank{i}.pt"), map_location=DEVICE)
+                 for i in range(2)]
+    for i, launches in enumerate(res["launches"]):
+        _require_launches(f"dp rank {i}", launches)
+    differ = [k for k in ranks[0]["grads"]
+              if not torch.equal(ranks[0]["grads"][k], ranks[1]["grads"][k])]
+    if differ:
+        raise AssertionError(f"the two ranks' summed gradients differ: {differ[:5]}")
+
+    model, spec, batch = dryrun.make_case(case, DEVICE)
+    init_state, step = make_train_step(model, spec, case["lr"], device=DEVICE)
+    state = init_state()
+    _, overflow, grads = loss_and_grad(model, spec, state.params, batch)
+    new, loss, _ = step.with_overflow(state, batch)
+    if int(overflow) or res["overflow"]:
+        raise AssertionError(f"dp: overflow {int(overflow)} / {res['overflow']}")
+    gloo = _dp_check("two gloo ranks", ranks[0]["loss"], ranks[0]["grads"],
+                     ranks[0]["params"], loss, grads, new.params)
+
+    # one rank through NCCL (two ranks on one card are refused by NCCL)
+    one = {k: v[:1] for k, v in batch.items()}
+    dev = initialize(coordinator_address=f"127.0.0.1:{dryrun.free_port()}",
+                     num_processes=1, process_id=0,
+                     device="cpu" if DEVICE == "cpu" else None, timeout=300)
+    try:
+        backend = dist.get_backend()
+        init_dp, dp_step = make_dp_train_step(model, spec, global_mesh(),
+                                              case["lr"], device=dev)
+        dp_state = init_dp()
+        (dp_new, dp_loss, _, dp_grads), nccl_launches = count_launches(
+            lambda: dp_step.with_grads(dp_state, one))
+        sync()
+        t = time.perf_counter()
+        dp_step(dp_state, one)
+        sync()
+        nccl_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        dist.destroy_process_group()
+    _require_launches("dp world size 1", nccl_launches)
+    one_new, one_loss, _ = step.with_overflow(state, one)
+    _, _, one_grads = loss_and_grad(model, spec, state.params, one)
+    differ = [k for k in one_grads if not torch.equal(dp_grads[k], one_grads[k])]
+    differ += [k for k in one_new.params
+               if not torch.equal(dp_new.params[k], one_new.params[k])]
+    if differ or not torch.equal(dp_loss, one_loss):
+        raise AssertionError(f"{backend} at world size 1 is not the single-process "
+                             f"step bit for bit: loss {float(dp_loss)!r} vs "
+                             f"{float(one_loss)!r}, leaves {differ[:5]}")
+    results["dp"] = dict(gloo=gloo, launches=res["launches"],
+                         nccl_launches=nccl_launches, backend_one=backend,
+                         first_step_ms=res["first_step_ms"], step_ms=res["step_ms"],
+                         one_rank_step_ms=nccl_ms, loss=res["loss"],
+                         elapsed_s=res["elapsed_s"])
+    log(f"dp: two gloo ranks on {res['device']} (flagship float32, global batch 2, "
+        f"valid1 {case['valid1']}): loss {res['loss']:.7f}, vs one process "
+        f"loss {gloo['loss_rel']:.2e}, worst gradient leaf {gloo['grad_worst']:.2e}, "
+        f"params after Adam max {gloo['param_max']:.2e}; ranks bit-identical; "
+        f"step ms per rank {res['step_ms']} (first {res['first_step_ms']}), "
+        f"launches {res['launches']}; {res['elapsed_s']:.1f} s with the "
+        f"interpreters' start")
+    log(f"dp: {backend} at world size 1 equals the single-process step bit for "
+        f"bit; {nccl_ms:.2f} ms/step, launches {nccl_launches}")
+
+
+BENCH_REPS = 5
+
+
+def phase_bench(results):
+    """``hplflownet_tpu_torch.bench`` at a few reps: its JSON line (never
+    the last), with every kernel 1-4 launched in its step."""
+    from hplflownet_tpu_torch import bench
+    res = bench.run(DEVICE, reps=BENCH_REPS, warmup=2, num_points=NUM_POINTS,
+                    capacities=CAPACITIES)
+    print(json.dumps(res), flush=True)
+    _require_launches("bench step", res["launches"]["step"])
+    _require_launches("bench forward", {k: res["launches"]["forward"][k] for k in
+                                        ("stencil_gather_matmul", "rank_reduce")})
+    results["bench"] = res
+    log(f"bench: {res['value']:.2f} pairs/s ({res['forward_ms']:.2f} ms/pair), "
+        f"train {res['train_step_ms']:.2f} ms/step, median of {res['reps']}; "
+        f"{res['device']}, {res['power_limit_w']} W")
+
+
+SYNTH_POINTS = 1024
+
+
+def phase_synthetic(results):
+    """The synthetic tools end to end: ``tools.train_synthetic`` (the
+    shallow model, a few steps, ``--save-params``), ``tools.eval_synthetic``
+    on that pickle through the driver with the scene dumps, and
+    ``data.visualization``'s CLI on the dumps."""
+    import tempfile
+    import numpy as np
+    from hplflownet_tpu_torch.data import visualization
+    from hplflownet_tpu_torch.tools import eval_synthetic, train_synthetic
+    metrics = ("epe3d", "acc3ds", "acc3dr", "outliers", "epe2d", "acc2d")
+    dev = ["--device", "cpu"] if DEVICE == "cpu" else []
+    wrappers = _kernel_wrappers()
+    pairs = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = os.path.join(tmp, "params.pkl")
+        trained, train_launches = _counted(wrappers, lambda: train_synthetic.main(
+            ["--num-points", str(SYNTH_POINTS), "--train-pairs", "4",
+             "--val-pairs", "2", "--steps", "8", "--eval-every", "8",
+             "--patches", "12", "--save-params", pkl] + dev))
+        ev, eval_launches = _counted(wrappers, lambda: eval_synthetic.main(
+            ["--params", pkl, "--arch", "HPLFlowNetShallow", "--num-points",
+             str(SYNTH_POINTS), "--pairs", str(pairs), "--patches", "12",
+             "--workdir", os.path.join(tmp, "eval")] + dev))
+        ply = os.path.join(tmp, "ply")
+        scenes = visualization.main([ev["visu_dir"], "--out-dir", ply])
+        missing = [f"{i:04d}_{t}" for i in range(pairs)
+                   for t in ("pc1.ply", "gt.ply", "pred.ply", "error.ply", "scene.html")
+                   if not os.path.isfile(os.path.join(ply, f"{i:04d}_{t}"))]
+    _require_launches("train_synthetic", train_launches)
+    _require_launches("eval_synthetic", {k: eval_launches[k] for k in
+                                         ("stencil_gather_matmul", "rank_reduce")})
+    bad = [k for k in metrics if not np.isfinite(ev[k])]
+    if bad or missing or scenes != pairs or trained["overflow_total"] \
+            or ev["overflowed_batches"] or not np.isfinite(trained["final_val_epe3d"]):
+        raise AssertionError(f"synthetic: non-finite {bad}, missing scene files "
+                             f"{missing[:5]}, {scenes} scenes, overflow "
+                             f"{trained['overflow_total']} / {ev['overflowed_batches']}")
+    results["synthetic"] = dict(
+        train_launches=train_launches, eval_launches=eval_launches,
+        train_steps_per_sec=trained["train_steps_per_sec"],
+        eval_pairs_per_s=ev["pairs_per_s"], metrics={k: ev[k] for k in metrics},
+        val_epe3d=[trained["initial_val_epe3d"], trained["final_val_epe3d"]])
+    log(f"synthetic (shallow, {SYNTH_POINTS} points): train_synthetic 8 steps at "
+        f"{trained['train_steps_per_sec']:.2f} steps/s, val EPE3D "
+        f"{trained['initial_val_epe3d']:.4f} -> {trained['final_val_epe3d']:.4f}, "
+        f"launches {train_launches}; eval_synthetic {ev['pairs_per_s']:.2f} "
+        f"pairs/s, launches {eval_launches}, "
+        + ", ".join(f"{k} {ev[k]:.4f}" for k in metrics)
+        + f"; {scenes} scenes exported (.ply and .html)")
+
+
 def phase_plans(results):
     """The CUDA kernels one pair's stencil plans launch, counted with
     torch.profiler; last, because the profiler's tracing slows the host
@@ -2021,12 +2219,20 @@ def kernels_line(results) -> dict:
                if name in launches_fwd else {})))
     # the later paths' launches, each counted over its own run
     shallow, driver = results.get("shallow", {}), results.get("driver", {})
+    dp, synthetic = results.get("dp", {}), results.get("synthetic", {})
+    bench = results.get("bench", {}).get("launches", {})
     for row in out:
         for key, counts in (
                 ("launches_shallow_step", shallow.get("step_launches", {})),
                 ("launches_shallow_forward", shallow.get("forward_launches", {})),
                 ("launches_driver_train", driver.get("train_launches", {})),
-                ("launches_driver_eval", driver.get("eval_launches", {}))):
+                ("launches_driver_eval", driver.get("eval_launches", {})),
+                ("launches_dp_rank0", (dp.get("launches") or [{}])[0]),
+                ("launches_dp_world1", dp.get("nccl_launches", {})),
+                ("launches_bench_step", bench.get("step", {})),
+                ("launches_bench_forward", bench.get("forward", {})),
+                ("launches_synthetic_train", synthetic.get("train_launches", {})),
+                ("launches_synthetic_eval", synthetic.get("eval_launches", {}))):
             if row["name"] in counts:
                 row[key] = counts[row["name"]]
     return {"kernels": out}
@@ -2083,6 +2289,9 @@ def main(argv=None) -> int:
               ("shallow", lambda: phase_shallow(results)),
               ("driver", lambda: phase_driver(results)),
               ("tools", lambda: phase_tools(results)),
+              ("bench", lambda: phase_bench(results)),
+              ("synthetic", lambda: phase_synthetic(results)),
+              ("dp", lambda: phase_dp(results)),
               ("plans", lambda: phase_plans(results))]
     only = None if args.phases is None else args.phases.split(",")
     if only is not None and set(only) - {n for n, _ in phases}:

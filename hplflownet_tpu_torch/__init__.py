@@ -15,8 +15,12 @@ anything of the JAX package — and mirrors that package's module names:
   the EPE3D loss and the init schemes;
 * ``train/``    the train and eval steps (hand-written Adam) and the LR
   schedules;
+* ``parallel/`` data-parallel training over ``torch.distributed``;
+* ``data/``     datasets, loader, the offline preprocess and scene-export
+  CLIs;
 * ``pipeline``  ``make_lattice_spec`` and ``flow_forward``;
-* ``params``    carries JAX parameter and optimizer trees across.
+* ``params``    carries JAX parameter and optimizer trees across, both ways;
+* ``bench``     the flagship's pairs/s and train ms/step as one JSON line.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a card.

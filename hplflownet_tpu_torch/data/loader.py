@@ -50,11 +50,13 @@ class BatchLoader:
     """Iterate a dataset in batches with background prefetch.
 
     Drops the trailing partial batch when ``drop_last`` (one batch shape);
-    shuffles per epoch with the given seed.
+    shuffles per epoch with the given seed.  ``epoch`` is the epoch the
+    first iteration draws (each sample's RNG derives from it).
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, seed=0,
-                 num_threads=4, prefetch=4, drop_last=None, pad_last=False):
+                 num_threads=4, prefetch=4, drop_last=None, pad_last=False,
+                 epoch=0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -65,7 +67,7 @@ class BatchLoader:
         # pad (instead of emit ragged) the trailing partial batch: one
         # batch shape per eval epoch (e.g. KITTI's 142 samples at batch 4)
         self.pad_last = pad_last and not self.drop_last
-        self._epoch = 0
+        self._epoch = int(epoch)
 
     def __len__(self):
         n = len(self.dataset)

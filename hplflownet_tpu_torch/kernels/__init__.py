@@ -38,7 +38,8 @@ import contextlib
 import contextvars
 import functools
 
-__all__ = ["plain_kernels", "plain_forced", "backward_like_forward"]
+__all__ = ["plain_kernels", "plain_forced", "backward_like_forward",
+           "main_path_wrappers", "count_launches"]
 
 _PLAIN: contextvars.ContextVar = contextvars.ContextVar("plain_kernels",
                                                         default=False)
@@ -70,3 +71,25 @@ def backward_like_forward(backward):
         with plain_kernels(ctx.plain_kernels):
             return backward(ctx, *grads)
     return wrapped
+
+
+def main_path_wrappers() -> dict:
+    """The wrappers of kernels 1-4, the ones the forward and the train step
+    launch, by name."""
+    from .dkernel import stencil_dkernel
+    from .splat import rank_reduce
+    from .stencil import stencil_gather_matmul
+    from .tap_tables import stencil_tap_tables_sum
+    return {"stencil_gather_matmul": stencil_gather_matmul,
+            "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
+            "stencil_tap_tables_sum": stencil_tap_tables_sum}
+
+
+def count_launches(fn, wrappers: dict | None = None):
+    """``fn()`` with the wrappers' launch counts (kernels 1-4 by default)
+    set to 0 just before and read just after -> (result, {name: count})."""
+    wrappers = main_path_wrappers() if wrappers is None else wrappers
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {k: w.launches for k, w in wrappers.items()}

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "seeded_jax_params"]
+__all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax",
+           "seeded_jax_params"]
 
 
 def _flatten(tree, prefix=""):
@@ -51,6 +52,29 @@ def params_from_jax(tree: dict, model: nn.Module | None = None):
                              f"{tuple(own[k].shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def params_to_jax(params) -> dict:
+    """The JAX parameter tree for the port's parameters: the inverse of
+    :func:`params_from_jax`.
+
+    ``params`` is a model (its parameters) or a mapping of ``state_dict``
+    names to tensors or arrays; the result is ``{"params": {module: {name:
+    array}}}`` with float32 numpy leaves, the layout of the trained-weight
+    pickles, which either package reads.
+    """
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    tree: dict = {}
+    for name, v in params.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().to("cpu", torch.float32).numpy()
+        mod, leaf = name.rsplit(".", 1)
+        node = tree
+        for part in mod.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(v, dtype=np.float32, copy=True)
+    return {"params": tree}
 
 
 def opt_state_from_jax(opt_state, device=None):

@@ -17,9 +17,16 @@
 * ``tap_cases``         seeded edge cases for ``stencil_tap_tables_sum`` (a
                         module);
 * ``step_calls``        the calls one flagship forward and train step make
-                        to those two kernels (a module).
+                        to those two kernels (a module);
+* ``train_synthetic``   the learnability harness: a model trained on seeded
+                        synthetic flow, its held-out EPE3D curve, the
+                        parameters as a JAX-layout pickle;
+* ``eval_synthetic``    such a pickle evaluated through ``train.driver``
+                        (the six metrics, the scene dumps);
+* ``dryrun_multiprocess``  a data-parallel step across fresh worker
+                        interpreters (``parallel``), the ranks checked equal.
 
 Each tool runs on the CUDA card unless given ``--device cpu`` (toy runs:
 host clock, no device number; ``kernel_ab`` needs a card) and prints one
-JSON line last.
+JSON line last; none writes a file unless given one (``--out``).
 """

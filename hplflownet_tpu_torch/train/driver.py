@@ -111,9 +111,13 @@ def build_everything(args, logger, device=None):
     val_dataset = dataset_cls(train=False, transform=val_transform,
                               **ds_kwargs)
     logger.log(f"val_dataset: {len(val_dataset)} samples")
+    # epoch 1: the JAX driver draws one val batch for its model-init probe
+    # (hplflownet_tpu/train/driver.py:124) before anything else iterates
+    # the loader, so its evaluation samples each cloud with the next
+    # epoch's RNG; starting there gives both drivers the same points
     val_loader = BatchLoader(val_dataset, args.batch_size, shuffle=False,
                              num_threads=args.get_or("workers", 4),
-                             drop_last=False, pad_last=True)
+                             drop_last=False, pad_last=True, epoch=1)
 
     train_loader = None
     if not args.evaluate:

@@ -132,10 +132,10 @@ def _batch_to(batch: Mapping, device) -> dict:
             for k, dt in kinds.items()}
 
 
-def _batched_loss(model, spec: LatticeSpec, params, batch,
+def _batched_pred(model, spec: LatticeSpec, params, batch,
                   adjoint_plans: bool = True):
-    """batch: pc1, pc2 (B, N, d), sf (B, N, d), valid1/2 (B, N); one sample
-    at a time, as ``lax.map`` does in JAX.  -> (loss, pred, overflow)."""
+    """batch: pc1, pc2 (B, N, d), valid1/2 (B, N); one sample at a time, as
+    ``lax.map`` does in JAX.  -> (pred (B, N, d), overflow)."""
     preds = []
     overflow = None
     for b in range(batch["pc1"].shape[0]):
@@ -147,7 +147,14 @@ def _batched_loss(model, spec: LatticeSpec, params, batch,
         preds.append(functional_call(model, params, (pc1, pc2, scales)))
         o = _scales_overflow(scales)
         overflow = o if overflow is None else overflow + o
-    pred = torch.stack(preds)
+    return torch.stack(preds), overflow
+
+
+def _batched_loss(model, spec: LatticeSpec, params, batch,
+                  adjoint_plans: bool = True):
+    """:func:`_batched_pred` and the batch's EPE3D (``sf`` (B, N, d) the
+    target).  -> (loss, pred, overflow)."""
+    pred, overflow = _batched_pred(model, spec, params, batch, adjoint_plans)
     return epe3d_loss(pred, batch["sf"], batch["valid1"]), pred, overflow
 
 

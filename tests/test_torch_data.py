@@ -217,6 +217,41 @@ def test_batch_loader_matches_jax_on_ft3d_with_augmentation(ft3d_root,
             assert epochs[0][-1]["num_real"] == 1
 
 
+def test_driver_val_loader_draws_what_the_jax_driver_evaluates(ft3d_root):
+    """The JAX driver draws one val batch for its init probe
+    (hplflownet_tpu/train/driver.py:124) before it evaluates, so it
+    evaluates with the loader's second epoch; the port's driver starts its
+    val loader there (``epoch=1``) and draws the same points.  The frames
+    hold more points than are sampled, so each epoch draws others."""
+    import logging
+    from hplflownet_tpu_torch.train.driver import build_everything
+
+    class Quiet:
+        def log(self, msg):
+            logging.getLogger(__name__).debug(msg)
+
+    cfg = tcfg.postprocess(tcfg.Config(dict(
+        arch="HPLFlowNetShallow", dataset="FlyingThings3DSubset",
+        data_root=ft3d_root, full=True, strict=False, evaluate=True,
+        resume=True, num_points=64, batch_size=2, data_process=DP,
+        allow_less_points=True, workers=2, platform="cpu",
+        scales_filter_map=[[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1],
+                           [0.125, 1, 1, 1], [0.0625, 1, 1, 1]],
+        lattice_capacities=[512, 512, 512, 256, 256])))
+    got = list(build_everything(cfg, Quiet(), device="cpu")["val_loader"])
+    ds = jds.FlyingThings3DSubset(False, jtr.ProcessData(DP, 64, True),
+                                  num_points=64, data_root=ft3d_root,
+                                  full=True, strict=False)
+    jax_val = jloader.BatchLoader(ds, 2, shuffle=False, num_threads=2,
+                                  drop_last=False, pad_last=True)
+    first = list(jax_val)                  # the probe's epoch
+    want = list(jax_val)                   # the epoch JAX evaluates
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert_same(g, w)
+    assert (first[0]["pc1"] != got[0]["pc1"]).any()
+
+
 RAW = """
 arch: HPLFlowNet
 dataset: FlyingThings3DSubset
