@@ -75,7 +75,8 @@ Phases, each printing a line with its elapsed seconds:
             its first step, with the kernels' launches in each;
 10. tools   the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
-            counts of ``row_take`` and ``rank_partial`` in them;
+            counts of ``row_take`` and ``rank_partial`` in them; then the
+            lattice build's stages per scale (``tools.pyramid_bench``);
 11. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
             (pairs/s, train ms/step, launches, the card), kernels 1-4
             launched in its step;
@@ -84,7 +85,17 @@ Phases, each printing a line with its elapsed seconds:
             pickle through the driver with the scene dumps, and
             ``data.visualization``'s CLI on them: six finite metrics, zero
             overflow, the .ply and .html files, the rates;
-13. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
+13. large   ``tools.large_cloud_bench`` at 32768 and 98304 points on the
+            flagship (bf16, capacities measured on seeds 0-2 with slack
+            1.25): zero on all four overflow counters, ms/pair, peak MiB,
+            launches of kernels 1 and 2; every kernel call of one 98304-point
+            forward against its plain version on its inputs (CALL_TOL); the
+            32768-point flow against the forward with the plain versions
+            forced (phase 5's bound);
+14. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
+            the device builder on the 8192-point pair at scale 1.0: ids,
+            unique keys, neighbour and correlation tables equal; host ms;
+15. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
             on the one card, fresh interpreters started by
             ``tools.dryrun_multiprocess``, take one step of the flagship
             (float32, 8192 points, global batch 2, the second sample's
@@ -95,7 +106,21 @@ Phases, each printing a line with its elapsed seconds:
             world size 1, bit for bit against the single-process step on
             one sample; kernels 1-4 launched in every rank, the step's ms
             (after the phases it could slow: it starts NCCL in this process);
-14. plans   the CUDA kernels that one pair's stencil plans launch
+16. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
+            gloo ranks on the one card (fresh interpreters) run the flagship
+            forward (bf16, 8192 points) with the probes split over the taps
+            and the blur / correlation vertices over the ranks: the flow
+            against the unsharded ``flow_forward`` (bit for bit, else phase
+            5's bound), the tap-sharded tables equal, each rank's kernel-1
+            calls computing ceil(H / 2) of their H rows, every kernel call
+            of each rank's forward (row slices with plans of their own
+            columns) against its plain version on its inputs (CALL_TOL);
+            ms/pair sharded and unsharded on the host clock (two ranks
+            share one card: no scaling figure); then one NCCL rank at
+            world size 1, bit for bit;
+17. op_profile  ``tools.op_profile`` of the forward and the train step
+            (torch.profiler, 2 calls each): the top kernels by device time;
+18. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; last, as tracing slows the host afterwards).
 
 Then one JSON line listing every kernel (with its launches on every path
@@ -1269,6 +1294,19 @@ def phase_reference():
         + f" (limits {TRAIN_TOL})")
 
 
+# a bf16 flow against another order of its sums (the plain versions, a
+# sharded forward): a one-ulp rounding flip (2^-8) in one layer spreads
+# through the next ones, so the two differ by ~1e-2
+FLOW_REL_TOL = 5e-2
+
+
+def _flow_rel(got, want) -> tuple:
+    """(max abs, max abs / max |want|) of two flows."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = float((got - want).abs().max())
+    return err, err / float(want.abs().max())
+
+
 def phase_main_path(results):
     import numpy as np
     import torch
@@ -1298,9 +1336,7 @@ def phase_main_path(results):
     launches = {k: w.launches for k, w in wrappers.items()}
     builds = make_stencil_plan.builds
     log(f"main path launches: {launches}; stencil plans built: {builds}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
+    _require_launches("the main path", launches)
     results["forward_launches"] = launches
 
     out = flow.float().cpu().numpy()
@@ -1327,16 +1363,12 @@ def phase_main_path(results):
     sync()
     if any(w.launches != before[k] for k, w in wrappers.items()):
         raise AssertionError("a kernel launched inside plain_kernels()")
-    ref = flow_plain.float().cpu().numpy()
-    err = float(np.abs(out - ref).max())
-    rel = err / float(np.abs(ref).max())
-    # bf16 activations: a one-ulp rounding flip (2^-8) in one layer spreads
-    # through the next ones, so the two orders of summation differ by ~1e-2
-    if rel > 5e-2:
+    err, rel = _flow_rel(flow, flow_plain)
+    if rel > FLOW_REL_TOL:
         raise AssertionError(f"bf16 flow, kernels vs plain: max abs {err:.3e}, "
-                             f"max rel {rel:.3e} > 5e-2")
+                             f"max rel {rel:.3e} > {FLOW_REL_TOL}")
     log(f"bf16 flow, kernels vs plain versions on the card: max abs "
-        f"{err:.3e}, max rel {rel:.3e} (limit 5e-2)")
+        f"{err:.3e}, max rel {rel:.3e} (limit {FLOW_REL_TOL})")
 
     def fwd():
         return flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
@@ -1598,67 +1630,10 @@ def _require_launches(what: str, launches: dict) -> None:
             raise AssertionError(f"{what}: {missing} not launched ({launches})")
 
 
-# where the ops call each kernel of the main path (module globals)
-KERNEL_SITES = {"stencil_gather_matmul": ("ops.bcl", "ops.corr"),
-                "rank_reduce": ("ops.segment",),
-                "stencil_dkernel": ("ops.bcl", "ops.corr"),
-                "stencil_tap_tables_sum": ("ops.corr",)}
 # a kernel call vs its plain version on the same inputs, max|d| / max|plain|:
 # a bf16 output differs by at most an ulp or two (2^-8 of the value), a
 # float32 one by the order of its float32 sums
 CALL_TOL = {"bf16": 1.6e-2, "f32": 1e-4}
-
-
-class recorded_calls:
-    """Within the ``with``, every call the ops make to kernels 1-4 is
-    passed on and recorded as (name, args, kwargs, a copy of the output)."""
-
-    def __enter__(self):
-        import importlib
-        self.calls, self.saved = [], []
-        for name, sites in KERNEL_SITES.items():
-            for site in sites:
-                mod = importlib.import_module(f"hplflownet_tpu_torch.{site}")
-                wrapper = getattr(mod, name)
-
-                def recorder(*a, _name=name, _wrapper=wrapper, **kw):
-                    out = _wrapper(*a, **kw)
-                    self.calls.append((_name, a, kw, out.detach().clone()))
-                    return out
-                self.saved.append((mod, name, wrapper))
-                setattr(mod, name, recorder)
-        return self.calls
-
-    def __exit__(self, *exc):
-        for mod, name, wrapper in self.saved:
-            setattr(mod, name, wrapper)
-
-
-def check_calls(calls) -> dict:
-    """Each recorded call again with the plain versions forced: -> per
-    kernel the number of calls and shapes and the worst max|d| / max|plain|;
-    raises past CALL_TOL."""
-    import torch
-    from hplflownet_tpu_torch.kernels import plain_kernels
-    wrappers = _kernel_wrappers()
-    out = {}
-    for name, a, kw, got in calls:
-        with plain_kernels(), torch.no_grad():
-            want = wrappers[name](*a, **kw)
-        tol = CALL_TOL["bf16" if got.dtype == torch.bfloat16 else "f32"]
-        d = float((got.float() - want.float()).abs().max()
-                  / want.float().abs().max().clamp_min(1e-30))
-        shape = (tuple(got.shape), str(got.dtype))
-        if d > tol or got.shape != want.shape:
-            raise AssertionError(f"{name} call at output {shape}: max|d| / "
-                                 f"max|plain| {d:.3e} > {tol}")
-        row = out.setdefault(name, {"calls": 0, "shapes": set(), "worst": 0.0})
-        row["calls"] += 1
-        row["shapes"].add(shape)
-        row["worst"] = max(row["worst"], d)
-    for row in out.values():
-        row["shapes"] = len(row["shapes"])
-    return out
 
 
 def leaf_rel(a: dict, b: dict) -> dict:
@@ -1680,6 +1655,7 @@ def phase_shallow(results):
     from hplflownet_tpu_torch.models import HPLFlowNetShallow
     from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
     from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
+    from hplflownet_tpu_torch.tools.step_calls import check_calls, recorded_calls
     from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
 
     pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
@@ -1724,7 +1700,7 @@ def phase_shallow(results):
     # every kernel call of one step on its own inputs, kernel vs plain
     with recorded_calls() as calls:
         _, _, g1 = loss_and_grad(model, spec, state.params, batch)
-    per_call = check_calls(calls)
+    per_call = check_calls(calls, CALL_TOL)
     del calls
     log("shallow train step, each kernel call against its plain version on "
         "the same inputs, max|d| / max|plain| (limits: bf16 out "
@@ -1944,11 +1920,13 @@ def phase_driver(results):
 
 
 def phase_tools(results):
-    """The op microbench and both labs at few reps: row_take and
-    rank_partial must launch there."""
+    """The op microbench and both labs at few reps (row_take and
+    rank_partial must launch there), and the build's stages
+    (``tools.pyramid_bench``)."""
     from hplflownet_tpu_torch.kernels.rank_partial import rank_partial
     from hplflownet_tpu_torch.kernels.take import row_take
-    from hplflownet_tpu_torch.tools import gather_lab, microbench, rank_partial_lab
+    from hplflownet_tpu_torch.tools import (gather_lab, microbench, pyramid_bench,
+                                            rank_partial_lab)
     for w in (row_take, rank_partial):
         w.launches = 0
     mb = microbench.run(DEVICE, NUM_POINTS, CAPACITIES, reps=TOOLS_REPS,
@@ -1971,6 +1949,15 @@ def phase_tools(results):
     for tool in (mb, gl, rp):
         log(f"{tool['tool']} ({tool['clock']}): " + "; ".join(
             f"{k} {v:.4f} ms" for k, v in tool["ms"].items()))
+    pb = pyramid_bench.run(DEVICE, NUM_POINTS, reps=TOOLS_REPS,
+                           capacities=CAPACITIES)
+    if not all(v > 0 for v in pb["ms"].values()):
+        raise AssertionError(f"pyramid_bench: no time for some stage: {pb['ms']}")
+    results["pyramid_bench"] = pb
+    log(f"pyramid_bench ({pb['clock']}, one cloud's build and blur probes, the "
+        f"pair's correlation probes, summed over scales): " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in pb["stage_ms"].items())
+        + f"; build_pyramid of the pair {pb['ms']['build_pyramid']:.3f} ms")
 
 
 # the dp phase: the flagship at full width in float32, global batch 2, the
@@ -2155,6 +2142,219 @@ def phase_synthetic(results):
         + f"; {scenes} scenes exported (.ply and .html)")
 
 
+# the large phase: large_cloud_bench's sizes on the flagship; the forward
+# with the plain versions forced at the first (the plain spread of the
+# second, rows x taps x channels in float32, is over 10 GB for one call)
+LARGE_SIZES = (32768, 98304)
+LARGE_REPS = 3
+
+
+def phase_large(results):
+    """``tools.large_cloud_bench`` at LARGE_SIZES on the flagship: zero
+    overflow, ms/pair, peak memory and launches; every kernel call of one
+    forward at the largest size against its plain version on its inputs;
+    at the smallest, the whole flow against the forward with the plain
+    versions forced."""
+    import torch
+    from hplflownet_tpu_torch.kernels import plain_kernels
+    from hplflownet_tpu_torch.tools import large_cloud_bench as lcb
+    from hplflownet_tpu_torch.tools.step_calls import check_calls, recorded_calls
+    from hplflownet_tpu_torch.tools.timing import model_case
+    rows = {}
+    for n in LARGE_SIZES:
+        row = lcb.run_size(n, DEVICE, reps=LARGE_REPS, warmup=1)
+        _require_launches(f"large {n} points", row["launches"])
+        rows[n] = row
+        log(f"large {n} points: capacities {row['capacities']}, overflow "
+            f"{row['overflow']}, {row['ms_per_pair']:.2f} ms/pair (median of "
+            f"{LARGE_REPS}, {row['clock']}), peak {row['peak_mib']} MiB, "
+            f"launches {row['launches']}")
+    per_call, plain = None, None
+    for n in (LARGE_SIZES[-1], LARGE_SIZES[0]):
+        model, spec, pc1, pc2 = model_case(
+            "HPLFlowNet", n, DEVICE, capacities=rows[n]["capacities"],
+            cloud_seed=lcb.CLOUD_SEED)
+        fn = lcb.forward_fn(model, spec, pc1, pc2)
+        if n == LARGE_SIZES[-1]:
+            with recorded_calls() as calls:
+                fn()
+            per_call = check_calls(calls, CALL_TOL)
+            del calls
+            log(f"large {n} points, every kernel call vs its plain version: "
+                + "; ".join(f"{k} {v['calls']} calls at {v['shapes']} shapes, "
+                            f"worst {v['worst']:.3e}" for k, v in per_call.items()))
+            continue
+        flow, _ = fn()
+        with plain_kernels():
+            want, _ = fn()
+        err, rel = _flow_rel(flow, want)
+        if rel > FLOW_REL_TOL:
+            raise AssertionError(f"large {n} points: bf16 flow, kernels vs plain "
+                                 f"max rel {rel:.3e} > {FLOW_REL_TOL}")
+        plain = {"points": n, "max_abs": err, "max_rel": rel}
+        log(f"large {n} points: bf16 flow, kernels vs plain versions: max abs "
+            f"{err:.3e}, max rel {rel:.3e} (limit {FLOW_REL_TOL})")
+        del model, fn, flow, want
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    results["large"] = {"sizes": list(rows.values()), "calls": per_call,
+                        "plain": plain}
+
+
+def phase_native(results):
+    """The host builder (``native``, built with g++) against the device
+    builder: the 8192-point pair at scale 1.0, every table equal."""
+    from hplflownet_tpu_torch.native import check
+    res = check.run(DEVICE, NUM_POINTS, scale=1.0)
+    results["native"] = res
+    log(f"native: host builder == device builder ({res['num_valid']} vertices, "
+        f"capacity {res['capacity']}): ids, unique keys, neighbour and "
+        f"correlation tables; host ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["host_ms"].items())
+        + f" ({res['host_ms_total']:.2f} in all, host clock)")
+
+
+# the lattice phase: the flagship forward (bf16, 8192 points) over two gloo
+# ranks on the one card, held to the unsharded flow_forward
+LATTICE_CASE = dict(mode="lattice", arch="HPLFlowNet", sfm=SFM7,
+                    global_batch=1, data="frustum", seed=0,
+                    compute_dtype="bfloat16", steps=4)
+
+
+def phase_lattice(results):
+    """Lattice parallel (``parallel.lattice_sharded_forward``): two gloo
+    ranks on the one card (fresh interpreters, ``tools.dryrun_multiprocess``)
+    against the unsharded forward (flow, the tap-sharded tables, kernel 1's
+    rows per rank), every kernel call of each rank's sharded forward (row
+    slices, plans of their own columns) against its plain version at
+    CALL_TOL; then one NCCL rank at world size 1, bit for bit."""
+    import statistics
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
+    from hplflownet_tpu_torch.lattice import build_pyramid
+    from hplflownet_tpu_torch.parallel import (initialize, lattice_sharded_forward,
+                                               make_mesh)
+    from hplflownet_tpu_torch.pipeline import flow_forward
+    from hplflownet_tpu_torch.tools import dryrun_multiprocess as dryrun
+    from torch.utils.flop_counter import FlopCounterMode
+    case = dict(LATTICE_CASE, num_points=NUM_POINTS, capacities=CAPACITIES,
+                call_tol=CALL_TOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = dryrun.run(case, procs=2, device=DEVICE, backend="gloo",
+                         save_dir=tmp, timeout=600)
+        ranks = [torch.load(os.path.join(tmp, f"rank{i}.pt"), map_location="cpu")
+                 for i in range(2)]
+    for i, launches in enumerate(res["launches"]):            # a forward
+        _require_launches(f"lattice rank {i}", {k: launches[k] for k in
+                                                ("stencil_gather_matmul",
+                                                 "rank_reduce")})
+
+    model, spec, batch = dryrun.make_case(case, DEVICE)
+    pc1, pc2 = (torch.from_numpy(batch[k][0]).to(DEVICE) for k in ("pc1", "pc2"))
+    stencil_gather_matmul.rows = 0
+
+    def whole():
+        return flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
+    want, launches = _counted(_kernel_wrappers(), whole)
+    rows = stencil_gather_matmul.rows
+    exact = torch.equal(ranks[0]["flow"], want.cpu())
+    err, rel = _flow_rel(ranks[0]["flow"], want.cpu())
+    if not exact and rel > FLOW_REL_TOL:
+        raise AssertionError(f"lattice: sharded flow vs unsharded max rel "
+                             f"{rel:.3e} > {FLOW_REL_TOL}")
+    with torch.inference_mode():
+        scales = build_pyramid(spec, pc1, pc2, adjoint_plans=False)
+    differ = [k for k, t in ranks[0]["tables"].items()
+              if not torch.equal(t, getattr(scales[int(k.split(".")[0])],
+                                            k.split(".")[1]).cpu())]
+    if differ:
+        raise AssertionError(f"lattice: tap-sharded tables differ: {differ[:5]}")
+    # each of a rank's kernel-1 calls computes ceil(H / 2) of its H rows
+    n_calls = launches["stencil_gather_matmul"]
+    for i, r in enumerate(res["kernel1_rows"]):
+        if DEVICE == "cuda" and not (0 < 2 * r <= rows + n_calls
+                                     and res["launches"][i]["stencil_gather_matmul"]
+                                     == n_calls):
+            raise AssertionError(f"lattice rank {i}: kernel 1 computed {r} rows "
+                                 f"in {res['launches'][i]} launches; unsharded "
+                                 f"{rows} rows in {n_calls}")
+    # each rank's kernel calls were replayed against their plain versions
+    for i, per_call in enumerate(res["calls"]):
+        missing = [k for k in ("stencil_gather_matmul", "rank_reduce")
+                   if per_call.get(k, {}).get("calls", 0) <= 0]
+        if missing:
+            raise AssertionError(f"lattice rank {i}: no call of {missing} "
+                                 f"checked against its plain version")
+    # timed as the ranks time theirs: each call alone on the host clock up
+    # to a synchronise, the median after the first
+    whole_ms = statistics.median(dryrun.host_ms(whole, DEVICE)[1]
+                                 for _ in range(LATTICE_CASE["steps"] - 1))
+    with FlopCounterMode(display=False) as counter:
+        whole()
+    flops = counter.get_total_flops()
+
+    dev = initialize(coordinator_address=f"127.0.0.1:{dryrun.free_port()}",
+                     num_processes=1, process_id=0,
+                     device="cpu" if DEVICE == "cpu" else None, timeout=300)
+    try:
+        backend = dist.get_backend()
+        fn = lattice_sharded_forward(model, spec, make_mesh(axis_names=("lattice",)))
+        one = fn(None, pc1.to(dev), pc2.to(dev))
+    finally:
+        dist.destroy_process_group()
+    if not torch.equal(one, want):
+        raise AssertionError(f"lattice: {backend} at world size 1 is not "
+                             f"flow_forward bit for bit")
+    results["lattice"] = dict(
+        exact=exact, max_abs=err, max_rel=rel, launches=res["launches"],
+        kernel1_rows=res["kernel1_rows"], unsharded_rows=rows,
+        unsharded_launches=launches, flops=res["flops"], unsharded_flops=flops,
+        calls=res["calls"], sharded_ms=res["step_ms"],
+        first_ms=res["first_step_ms"], unsharded_ms=whole_ms,
+        backend_one=backend, elapsed_s=res["elapsed_s"])
+    log(f"lattice: two gloo ranks on {res['device']} (flagship bf16, "
+        f"{NUM_POINTS} points): flow {'bit for bit' if exact else 'within'} "
+        f"the unsharded one (max abs {err:.3e}, max rel {rel:.3e}); tap-sharded "
+        f"tables equal; kernel 1 rows per rank {res['kernel1_rows']} of "
+        f"{rows} unsharded in {n_calls} launches; FLOPs per rank {res['flops']} "
+        f"of {flops} unsharded ({res['flops'][0] / flops:.3f}); "
+        f"ms/pair per rank {res['step_ms']} vs unsharded {whole_ms:.2f} (host "
+        f"clock up to a synchronise; ranks share the card and gather through "
+        f"host memory: no scaling figure); {backend} at world size 1 bit for "
+        f"bit")
+    for i, per_call in enumerate(res["calls"]):
+        log(f"lattice rank {i}, every kernel call vs its plain version "
+            f"(limits: bf16 out {CALL_TOL['bf16']}, float32 out "
+            f"{CALL_TOL['f32']}): " + "; ".join(
+                f"{k} {v['calls']} calls at {v['shapes']} shapes, worst "
+                f"{v['worst']:.3e}" for k, v in per_call.items()))
+
+
+OP_PROFILE_REPS = 2
+
+
+def phase_op_profile(results):
+    """``tools.op_profile`` of the flagship forward and train step at
+    OP_PROFILE_REPS calls each (torch.profiler: after the timed phases, as
+    tracing slows the host for the rest of the process)."""
+    from hplflownet_tpu_torch.tools import op_profile
+    out = {}
+    for train in (False, True):
+        res = op_profile.run(DEVICE, train=train, num_points=NUM_POINTS,
+                             reps=OP_PROFILE_REPS, top=10)
+        unit = "step" if train else "pair"
+        if not res["top"] or res["busy_ms_per_" + unit] <= 0:
+            raise AssertionError(f"op_profile {res['what']}: no kernel traced")
+        out[unit] = res
+        log(f"op_profile {res['what']}: {res['busy_ms_per_' + unit]:.3f} ms busy "
+            f"of {res['wall_ms_per_' + unit]:.3f} ms, "
+            f"{res['kernels_per_' + unit]:.0f} kernels; top: " + "; ".join(
+                f"{r['name'][:40]} {r['ms']:.3f} ms" for r in res["top"][:3]))
+    results["op_profile"] = out
+
+
 def phase_plans(results):
     """The CUDA kernels one pair's stencil plans launch, counted with
     torch.profiler; last, because the profiler's tracing slows the host
@@ -2221,6 +2421,18 @@ def kernels_line(results) -> dict:
     shallow, driver = results.get("shallow", {}), results.get("driver", {})
     dp, synthetic = results.get("dp", {}), results.get("synthetic", {})
     bench = results.get("bench", {}).get("launches", {})
+    large = {f"launches_large_{r['points']}": r["launches"]
+             for r in results.get("large", {}).get("sizes", [])}
+    large_calls = results.get("large", {}).get("calls") or {}
+    lattice = results.get("lattice", {})
+    for row in out:
+        for key, counts in large.items():
+            if row["name"] in counts:
+                row[key] = counts[row["name"]]
+        if row["name"] in large_calls:
+            row["max_rel_err_large_calls"] = large_calls[row["name"]]["worst"]
+        if lattice and row["name"] in lattice["launches"][0]:
+            row["launches_lattice_rank0"] = lattice["launches"][0][row["name"]]
     for row in out:
         for key, counts in (
                 ("launches_shallow_step", shallow.get("step_launches", {})),
@@ -2291,7 +2503,11 @@ def main(argv=None) -> int:
               ("tools", lambda: phase_tools(results)),
               ("bench", lambda: phase_bench(results)),
               ("synthetic", lambda: phase_synthetic(results)),
+              ("large", lambda: phase_large(results)),
+              ("native", lambda: phase_native(results)),
               ("dp", lambda: phase_dp(results)),
+              ("lattice", lambda: phase_lattice(results)),
+              ("op_profile", lambda: phase_op_profile(results)),
               ("plans", lambda: phase_plans(results))]
     only = None if args.phases is None else args.phases.split(",")
     if only is not None and set(only) - {n for n, _ in phases}:

@@ -139,7 +139,10 @@ def stencil_gather_matmul(table: torch.Tensor,      # (H, C_in), no sentinel row
             _DTYPES[out_dtype], stream)
     check("stencil_gather_matmul", rc, "stencil_gather_matmul launch")
     stencil_gather_matmul.launches += 1
+    stencil_gather_matmul.rows += h_out
     return out
 
 
 stencil_gather_matmul.launches = 0
+stencil_gather_matmul.rows = 0     # output rows over the launches (a rank's
+                                   # share under ops.bcl.vertex_sharding)

@@ -8,4 +8,5 @@ from .build import (  # noqa: F401
     ScaleSpec,
     build_pyramid,
     default_capacities,
+    probe_sharding,
 )

@@ -20,6 +20,8 @@ device tensor back to the host: counts stay 0-dim tensors.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -27,11 +29,12 @@ import torch
 
 from ..device import device_constant, scalar
 from ..ops.segment import ReducePlan, local_ranks
+from ..ops.shard import axis_shard, gather_parts, local_part
 from .geometry import elevate, simplex_from_elevated
 from .offsets import neighborhood_offsets
 
-__all__ = ["ScaleSpec", "LatticeSpec", "CloudLattice", "ScalePair",
-           "build_pyramid", "default_capacities"]
+__all__ = ["probe_sharding", "ScaleSpec", "LatticeSpec", "CloudLattice",
+           "ScalePair", "build_pyramid", "default_capacities"]
 
 _DELTA_MARGIN = 16   # headroom for stencil deltas (|combined offset| <= 8)
 _SENTINEL = int(np.iinfo(np.int32).max)
@@ -170,12 +173,48 @@ def _offset_queries(offsets: np.ndarray, vkeys, ok: torch.Tensor, d, bits):
         for dv, v in zip(deltas, vkeys))
 
 
+# Call-time hook: when set, the stencil probes (queries of shape (taps, H))
+# are split over the taps of a mesh axis: each rank probes its taps'
+# queries against the whole, replicated key table, and an all-gather puts
+# the taps back together.  The probes are the pyramid's largest work and
+# are independent across taps (JAX: a shard_map over the tap axis).
+_PROBE_SHARD: contextvars.ContextVar = contextvars.ContextVar(
+    "probe_shard", default=None)
+
+
+@contextlib.contextmanager
+def probe_sharding(mesh, axis: str = "lattice"):
+    """Split the stencil probes of the enclosed builds over ``mesh``'s
+    ``axis`` (a ``parallel.Mesh``); every rank of the axis must build the
+    same pyramid.  Without a process group, or with one rank on the axis,
+    the probes run whole."""
+    token = _PROBE_SHARD.set(axis_shard(mesh, axis))
+    try:
+        yield
+    finally:
+        _PROBE_SHARD.reset(token)
+
+
 def _probe(vkeys, qwords):
     """Exact sort-merge join of query keys against a sorted vertex table.
 
     Returns ``(idx, found)`` shaped like the queries: ``idx`` counts table
     keys strictly below the query (the dense vertex id where ``found``).
+    Under :func:`probe_sharding`, (taps, H) queries are split over the
+    taps, padded with sentinel queries (which sort last and match nothing
+    real) to a multiple of the rank count.
     """
+    shard = _PROBE_SHARD.get()
+    if shard is None or qwords[0].dim() != 2:
+        return _probe_local(vkeys, qwords)
+    f = qwords[0].shape[0]
+    idx, found = _probe_local(vkeys, tuple(local_part(q, 0, _SENTINEL, shard)
+                                           for q in qwords))
+    both = gather_parts(torch.stack([idx, found.to(_I32)], dim=1), f, shard)
+    return both[:, 0], both[:, 1].bool()
+
+
+def _probe_local(vkeys, qwords):
     table = _key64(vkeys)
     q = _key64(qwords)
     n_t = table.shape[0]

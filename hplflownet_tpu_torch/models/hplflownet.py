@@ -25,7 +25,7 @@ from torch import nn
 from ..device import resolve_device
 from ..kernels.stencil_plan import make_stencil_plans
 from ..lattice.offsets import filter_size, tap_negation
-from ..ops.bcl import BilateralConv
+from ..ops.bcl import BilateralConv, local_columns
 from ..ops.corr import BilateralCorrelation
 from .layers import PointMLP
 
@@ -46,16 +46,20 @@ def stencil_plans(scales, lists: bool = True) -> list:
     from scale 2 on, where both models correlate (2..6 in the 7-scale
     model, 2..4 in the shallow one).  Made once per pair, together
     (:func:`make_stencil_plans`: one sort per tap count); ``lists`` as
-    there (the weight gradient's vertex lists)."""
+    there (the weight gradient's vertex lists).  Under
+    ``ops.bcl.vertex_sharding`` each plan is of the rank's columns of its
+    table, the ones the sharded op computes."""
     names, tables = [], []
     for s, sp in enumerate(scales):
         h1 = sp.pc1_splat_plan.start.shape[0]
         h2 = sp.pc2_splat_plan.start.shape[0]
         names += [(s, "pc1_blur"), (s, "pc2_blur")]
-        tables += [(sp.pc1_blur_neighbors, h1), (sp.pc2_blur_neighbors, h2)]
+        tables += [(local_columns(sp.pc1_blur_neighbors), h1),
+                   (local_columns(sp.pc2_blur_neighbors), h2)]
         if s >= 2:
             names += [(s, "pc1_corr"), (s, "pc2_corr")]
-            tables += [(sp.pc1_corr_indices, h1), (sp.pc2_corr_uniq, h2)]
+            tables += [(local_columns(sp.pc1_corr_indices), h1),
+                       (local_columns(sp.pc2_corr_uniq), h2)]
     with torch.no_grad():
         made = make_stencil_plans(tables, lists)
     plans = [{} for _ in scales]

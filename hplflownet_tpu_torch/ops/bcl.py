@@ -22,6 +22,11 @@ gather or a deterministic kernel, never ``index_add_`` / ``scatter_add_``.
   splat of the cotangent through the same plan (``rank_reduce``).
 * ``BilateralConv``: the module, with the flax parameter names and layouts
   (``conv0_kernel`` is ``(F, C_in, C_out)``).
+* ``vertex_sharding``: within it, ``blur`` (and the correlation BCL,
+  ``ops/corr.py``) computes only this rank's part of the output vertices
+  and all-gathers the rest over a mesh axis; splat, slice and the
+  point-wise layers stay replicated (JAX: GSPMD's partition of the
+  vertex-constrained blur and correlation outputs).  Forward only.
 
 Single-sample, channels-last.  Vertex id -1 is absent; every vertex table
 passed between layers carries a zero row 0 (ids shifted by +1).
@@ -29,6 +34,8 @@ passed between layers carries a zero row 0 (ids shifted by +1).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence
 
 import numpy as np
@@ -41,9 +48,48 @@ from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
 from .segment import ReducePlan, _wr_forward, weighted_reduce
+from .shard import axis_shard, gather_parts, local_part
 
 __all__ = ["splat", "blur", "slice_to_points", "BilateralConv",
-           "LEAKY_RATE", "NORM_EPS", "activation", "dense"]
+           "LEAKY_RATE", "NORM_EPS", "activation", "dense",
+           "vertex_sharding", "vertex_shard", "local_columns"]
+
+# Call-time hook for splitting the vertex axis over a mesh axis (see
+# parallel/lattice_parallel.py): the AxisShard of this rank, or None.
+_VERTEX_SHARD: contextvars.ContextVar = contextvars.ContextVar(
+    "vertex_shard", default=None)
+
+
+@contextlib.contextmanager
+def vertex_sharding(mesh, axis: str = "lattice"):
+    """Split the output vertices of every blur and correlation BCL called
+    in the block over ``mesh``'s ``axis`` (a ``parallel.Mesh``): each rank
+    computes ``ceil(H / R)`` rows of an H-row output, the table padded with
+    absent (-1) columns, and an all-gather assembles them.  Every rank of
+    the axis must run the same forward, without gradients.  Without a
+    process group, or with one rank on the axis, nothing is split."""
+    token = _VERTEX_SHARD.set(axis_shard(mesh, axis))
+    try:
+        yield
+    finally:
+        _VERTEX_SHARD.reset(token)
+
+
+def vertex_shard():
+    """The active vertex split (an ``ops.shard.AxisShard``), or None."""
+    shard = _VERTEX_SHARD.get()
+    if shard is not None and torch.is_grad_enabled():
+        raise RuntimeError("vertex sharding is forward only: run the model "
+                           "under torch.inference_mode()")
+    return shard
+
+
+def local_columns(table: torch.Tensor) -> torch.Tensor:
+    """This rank's columns of an index table (F, H) under
+    :func:`vertex_sharding` (padded with -1 columns), else the table: the
+    columns a sharded op computes, and what its stencil plan is made of."""
+    shard = _VERTEX_SHARD.get()
+    return table if shard is None else local_part(table, 1, -1, shard)
 
 LEAKY_RATE = 0.1
 NORM_EPS = 1e-5
@@ -159,10 +205,16 @@ def blur(splatted_pad: torch.Tensor,   # (H + 1, C_in), row 0 zero
     ``tap_negation`` (lattice.offsets.tap_negation of the stencil) is what
     the input gradient needs; the forward does not read it.  ``plan`` is
     the stencil plan of ``neighbors`` over H rows (made by the kernels from
-    the table when it is None).
+    the table when it is None); under :func:`vertex_sharding`, the plan of
+    the rank's columns (:func:`local_columns`).
     """
-    return _Blur.apply(splatted_pad, neighbors, kernel, bias, act_slope,
-                       out_dtype, tap_negation, plan)
+    shard = vertex_shard()
+    if shard is None:
+        return _Blur.apply(splatted_pad, neighbors, kernel, bias, act_slope,
+                           out_dtype, tap_negation, plan)
+    y = _Blur.apply(splatted_pad, local_columns(neighbors), kernel, bias,
+                    act_slope, out_dtype, tap_negation, plan)
+    return gather_parts(y, neighbors.shape[1], shard)
 
 
 def _slice_impl(blurred, bary, offsets):

@@ -24,6 +24,10 @@ Backward, scatter-free as in JAX:
 
 Each index table's stencil plan (``kernels.stencil_plan``), made once per
 pair by the caller, gives the kernels their row order and tap lists.
+
+Under ``ops.bcl.vertex_sharding`` the whole per-vertex chain (``corr_self``,
+``corr_cross``, the correlation MLP and the displacement filter) runs on
+this rank's columns of the H1 axis, and the output rows are all-gathered.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
 from ..kernels.tap_tables import stencil_tap_tables_sum
-from .bcl import _negation_index, activation, dense, splat
+from .bcl import (_negation_index, activation, dense, local_columns,
+                  splat, vertex_shard)
+from .shard import gather_parts
 from .segment import ReducePlan, apply_reduce_plan
 
 __all__ = ["gather_rows", "corr_self", "corr_cross", "fold_cross_kernel",
@@ -264,6 +270,12 @@ class BilateralCorrelation(nn.Module):
         dt = self.compute_dtype
         f32 = torch.float32
         c = feat1.shape[-1]
+        # under ops.bcl.vertex_sharding the per-vertex chain runs on this
+        # rank's H1 columns (the plans are the columns'), gathered at the end
+        shard = vertex_shard()
+        h1_all = pc1_corr_indices.shape[1]
+        pc1_corr_indices = local_columns(pc1_corr_indices)
+        pc2_corr_uniq = local_columns(pc2_corr_uniq)
         pad1 = torch.cat([feat1.new_zeros(1, c), feat1])
         if self.prev_corr_dim:
             # splat the finer scale's correlation output onto this scale's
@@ -306,4 +318,4 @@ class BilateralCorrelation(nn.Module):
             if i < len(self.widths) - 1 or self.last_relu:
                 x = activation(x, self.use_leaky)
             x = x.to(dt)
-        return x
+        return x if shard is None else gather_parts(x, h1_all, shard)

@@ -33,11 +33,7 @@ import time
 
 import torch
 
-from .tools.timing import (CAPACITIES, SFM5, SFM7, SHALLOW_CAPACITIES,
-                           card_line, time_ms)
-
-_ARCHS = {"HPLFlowNet": (SFM7, CAPACITIES),
-          "HPLFlowNetShallow": (SFM5, SHALLOW_CAPACITIES)}
+from .tools.timing import ARCHS as _ARCHS, card_line, time_ms
 
 _GROUPS = (("stencil_gather_matmul", ("stencil_wgmma_kernel", "stencil_f32_kernel")),
            ("stencil_dkernel", ("dkernel_wgmma", "dkernel_f32", "sum_slabs")),
@@ -58,24 +54,32 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _trace(fn, n_prof: int):
+def _trace(fn, n_prof: int, device="cuda"):
     """torch.profiler over ``n_prof`` calls: (wall ms per call, {kernel name:
-    (device ms per call, launches per call)})."""
+    (device ms per call, launches per call)}).  On the CPU the entries are
+    the operators' self times on the host instead (no device number)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        sync()
         t0 = time.perf_counter()
         for _ in range(n_prof):
             fn()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     kernels: dict = {}
+    want = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
     for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
+        if cuda:
+            us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
-        if evt.device_type != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+        else:
+            us = evt.self_cpu_time_total
+        if evt.device_type != want or us <= 0:
             continue
-        kernels[evt.key] = (dev_us / 1e3 / n_prof, evt.count / n_prof)
+        kernels[evt.key] = (us / 1e3 / n_prof, evt.count / n_prof)
     return wall_ms, kernels
 
 

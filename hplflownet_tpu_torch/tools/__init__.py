@@ -23,10 +23,21 @@
                         parameters as a JAX-layout pickle;
 * ``eval_synthetic``    such a pickle evaluated through ``train.driver``
                         (the six metrics, the scene dumps);
-* ``dryrun_multiprocess``  a data-parallel step across fresh worker
-                        interpreters (``parallel``), the ranks checked equal.
+* ``dryrun_multiprocess``  a data-parallel step, or a lattice-sharded
+                        forward, across fresh worker interpreters
+                        (``parallel``), the ranks checked equal;
+* ``large_cloud_bench`` 32768- and 98304-point pairs on one card: zero
+                        overflow, ms/pair, peak memory;
+* ``measure_capacities`` per-scale vertex counts on a config's dataset;
+* ``pyramid_bench``     the lattice build's stages timed per scale;
+* ``op_profile``        the top kernels of a forward or train step
+                        (``torch.profiler``);
+* ``port_torch_weights`` the reference's ``ours.pth.tar`` as a checkpoint
+                        of the port.
 
 Each tool runs on the CUDA card unless given ``--device cpu`` (toy runs:
 host clock, no device number; ``kernel_ab`` needs a card) and prints one
-JSON line last; none writes a file unless given one (``--out``).
+JSON line last (``measure_capacities`` and ``port_torch_weights`` print
+their result); none writes a file unless given one (``--out``, or
+``port_torch_weights``' checkpoint directory).
 """

@@ -10,8 +10,12 @@ returns, per kernel, every distinct shape with its launches per forward and
 per step and the arguments of its first call in the step, so that a kernel
 can be timed on the inputs the step really gives it.
 
-Nothing in the package reads this module: ``chip_smoke.py`` and
-``tools.kernel_ab`` use it.
+:class:`recorded_calls` records every call the ops make to kernels 1-4
+with a copy of its output, and :func:`check_calls` runs each again with
+the plain versions forced and holds the two to a limit.
+
+``chip_smoke.py``, ``tools.kernel_ab`` and the lattice mode of
+``tools.dryrun_multiprocess`` use this module; the model never reads it.
 """
 
 from __future__ import annotations
@@ -24,11 +28,18 @@ import torch
 
 from .timing import CAPACITIES, NUM_POINTS, SFM7
 
-__all__ = ["KERNELS", "shape_key", "record", "flagship_calls"]
+__all__ = ["KERNELS", "SITES", "shape_key", "record", "recorded_calls",
+           "check_calls", "flagship_calls"]
 
 # kernel name -> (module whose global the ops call it through, wrapper path)
 KERNELS = {"rank_reduce": "hplflownet_tpu_torch.ops.segment",
            "stencil_tap_tables_sum": "hplflownet_tpu_torch.ops.corr"}
+
+# where the ops call each kernel of the main path (module globals)
+SITES = {"stencil_gather_matmul": ("ops.bcl", "ops.corr"),
+         "rank_reduce": ("ops.segment",),
+         "stencil_dkernel": ("ops.bcl", "ops.corr"),
+         "stencil_tap_tables_sum": ("ops.corr",)}
 
 
 def shape_key(name: str, args: dict) -> dict:
@@ -78,6 +89,58 @@ def record(names=tuple(KERNELS)):
     finally:
         for mod, name, wrapper in saved:
             setattr(mod, name, wrapper)
+
+
+class recorded_calls:
+    """Within the ``with``, every call the ops make to kernels 1-4 is
+    passed on and recorded as (name, args, kwargs, a copy of the output)."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = [], []
+        for name, sites in SITES.items():
+            for site in sites:
+                mod = importlib.import_module(f"hplflownet_tpu_torch.{site}")
+                wrapper = getattr(mod, name)
+
+                def recorder(*a, _name=name, _wrapper=wrapper, **kw):
+                    out = _wrapper(*a, **kw)
+                    self.calls.append((_name, a, kw, out.detach().clone()))
+                    return out
+                self.saved.append((mod, name, wrapper))
+                setattr(mod, name, recorder)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, wrapper in self.saved:
+            setattr(mod, name, wrapper)
+
+
+def check_calls(calls, tol: dict) -> dict:
+    """Each recorded call again with the plain versions forced: -> per
+    kernel the number of calls and shapes and the worst max|d| /
+    max|plain|; raises past ``tol`` (``{"bf16": x, "f32": y}``, by the
+    output's dtype) or on a shape that differs."""
+    from ..kernels import main_path_wrappers, plain_kernels
+    wrappers = main_path_wrappers()
+    out = {}
+    for name, a, kw, got in calls:
+        with plain_kernels(), torch.no_grad():
+            want = wrappers[name](*a, **kw)
+        limit = tol["bf16" if got.dtype == torch.bfloat16 else "f32"]
+        d = float((got.float() - want.float()).abs().max()
+                  / want.float().abs().max().clamp_min(1e-30))
+        shape = (tuple(got.shape), str(got.dtype))
+        if d > limit or got.shape != want.shape:
+            raise AssertionError(f"{name} call at output {shape}: max|d| / "
+                                 f"max|plain| {d:.3e} > {limit}")
+        row = out.setdefault(name, {"calls": 0, "shapes": set(), "worst": 0.0})
+        row["calls"] += 1
+        row["shapes"].add(shape)
+        row["worst"] = max(row["worst"], d)
+    for row in out.values():
+        row["shapes"] = len(row["shapes"])
+    return out
 
 
 def flagship_calls(device, num_points: int = NUM_POINTS,

@@ -4,7 +4,9 @@
 (``bench.py:29-35``): the 7-scale map, its per-scale vertex capacities and
 8192 points per cloud; ``SFM5`` and ``SHALLOW_CAPACITIES`` the shallow
 model's (``tools/train_synthetic.py``'s map, capacities of
-``lattice.capacity.measured_default_capacities(8192, SFM5)``).
+``lattice.capacity.measured_default_capacities(8192, SFM5)``), and
+:func:`pair_case` and :func:`model_case` make one synthetic pair and
+either model at full width.
 :func:`time_ms` times a call with CUDA events on
 the card (warm-up calls first, then the mean over ``reps`` calls), or with
 the host clock on the CPU, whose numbers are no device metric.
@@ -21,7 +23,8 @@ import time
 import torch
 
 __all__ = ["SFM7", "CAPACITIES", "SFM5", "SHALLOW_CAPACITIES", "NUM_POINTS",
-           "time_ms", "graph_ms", "clock_name", "card_line", "print_result"]
+           "ARCHS", "pair_case", "model_case", "time_ms", "graph_ms", "clock_name",
+           "card_line", "print_result"]
 
 SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
         [0.5, 1, 1, 1], [0.25, 1, 1, 1], [0.125, 1, 1, 1],
@@ -31,6 +34,45 @@ SFM5 = [[1.0, 1, 1, 1], [0.5, 1, 1, 1], [0.25, 1, 1, 1],
         [0.125, 1, 1, 1], [0.0625, 1, 1, 1]]
 SHALLOW_CAPACITIES = [9472, 3712, 1024, 384, 128]
 NUM_POINTS = 8192
+# each model's map and its capacities at NUM_POINTS
+ARCHS = {"HPLFlowNet": (SFM7, CAPACITIES),
+         "HPLFlowNetShallow": (SFM5, SHALLOW_CAPACITIES)}
+
+
+def pair_case(arch: str = "HPLFlowNet", num_points: int = NUM_POINTS,
+              device=None, capacities=None, cloud_seed: int = 0):
+    """-> (spec, pc1, pc2): ``arch``'s lattice spec and one synthetic
+    FT3D-like pair of ``num_points`` (``synthetic_frustum_clouds``,
+    ``cloud_seed``) as (N, 3) float32 tensors on ``device`` (the card by
+    default).  Capacities: ``capacities``, else the model's own at
+    NUM_POINTS, else ``measured_default_capacities`` at ``num_points``."""
+    from ..device import resolve_device
+    from ..lattice.capacity import (measured_default_capacities,
+                                    synthetic_frustum_clouds)
+    from ..pipeline import make_lattice_spec
+    sfm, default = ARCHS[arch]
+    if capacities is None:
+        capacities = (default if num_points == NUM_POINTS
+                      else measured_default_capacities(num_points, sfm))
+    dev = resolve_device(device)
+    pc1, pc2 = synthetic_frustum_clouds(1, num_points, seed=cloud_seed)
+    return (make_lattice_spec(sfm, list(capacities)),
+            torch.from_numpy(pc1[0]).to(dev), torch.from_numpy(pc2[0]).to(dev))
+
+
+def model_case(arch: str = "HPLFlowNet", num_points: int = NUM_POINTS,
+               device=None, capacities=None, seed: int = 0,
+               cloud_seed: int = 0):
+    """-> (model, spec, pc1, pc2): :func:`pair_case` and ``arch`` at full
+    width in bfloat16 with weights seeded by ``seed``
+    (``params.seeded_jax_params``) on the same device."""
+    from ..models import MODELS
+    from ..params import params_from_jax, seeded_jax_params
+    spec, pc1, pc2 = pair_case(arch, num_points, device, capacities, cloud_seed)
+    model = MODELS[arch](ARCHS[arch][0], compute_dtype="bfloat16",
+                          device=pc1.device)
+    params_from_jax(seeded_jax_params(model, seed), model)
+    return model, spec, pc1, pc2
 
 
 def time_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
