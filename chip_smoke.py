@@ -121,7 +121,18 @@ Phases, each printing a line with its elapsed seconds:
 17. op_profile  ``tools.op_profile`` of the forward and the train step
             (torch.profiler, 2 calls each): the top kernels by device time;
 18. plans   the CUDA kernels that one pair's stencil plans launch
-            (torch.profiler; last, as tracing slows the host afterwards).
+            (torch.profiler; tracing slows the host afterwards);
+19. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
+            sort and probed in one join): every table of the flagship and
+            the shallow model's pyramids for the 8192-point pair under "1"
+            and "3584" against "0", the flagship flow and one train step's
+            loss and gradients under "1" against "0", all bit for bit, with
+            the launches of kernels 1-4; ``pipeline.batched_flow_forward``
+            on two pairs with invalid points against per-sample
+            ``flow_forward``, bit for bit; then, in a fresh interpreter,
+            ``tools.fused_build_bench``: build, forward and step ms with the
+            modes in turns, the build's torch operators and the device
+            kernels per forward and per step.
 
 Then one JSON line listing every kernel (with its launches on every path
 above), the nvidia-smi line, and as the
@@ -2376,6 +2387,153 @@ def phase_plans(results):
         f"{plans['kernels_step']} (train step, with the vertex lists)")
 
 
+# the fused_build phase: the HPL_FUSED_BUILD values held against "0" (every
+# scale fused; the flagship's scales of capacity <= 3584, its four coarse
+# ones), the timed ones, and the reps of each timing
+FUSED_BUILD_MODES = ("1", "3584")
+FUSED_BUILD_TIMED = ("0", "1", "3584")
+FUSED_BUILD_REPS = 5
+FUSED_BUILD_ARCH = "HPLFlowNet"   # the timed model (a CPU rehearsal: the shallow one)
+
+
+def _pyramid_fields(scales) -> dict:
+    """Every ScalePair field of a pyramid (splat plans field by field)."""
+    out = {}
+    for i, s in enumerate(scales):
+        for name, v in zip(s._fields, s):
+            if name.endswith("splat_plan"):
+                out.update({f"{i}.{name}.{k}": t for k, t in zip(v._fields, v)})
+            else:
+                out[f"{i}.{name}"] = v
+    return out
+
+
+def _same(what: str, got: dict, want: dict) -> int:
+    """Raise unless the two dicts of tensors are equal bit for bit."""
+    import torch
+    differ = [k for k in want if got[k].dtype != want[k].dtype
+              or not torch.equal(got[k], want[k])]
+    if differ or set(got) != set(want):
+        raise AssertionError(f"{what}: {len(differ)} of {len(want)} fields "
+                             f"differ: {differ[:5]}")
+    return len(want)
+
+
+def phase_fused_build(results):
+    """``HPL_FUSED_BUILD`` (both clouds of a scale built from one sort and
+    probed in one join): every table of the flagship and the shallow
+    model's pyramids under each of FUSED_BUILD_MODES, and the flagship
+    flow and one train step's loss and gradients under the first, bit for
+    bit against "0";
+    ``pipeline.batched_flow_forward`` against per-sample ``flow_forward``;
+    then ``tools.fused_build_bench`` in a fresh interpreter (the profiler
+    of the phases before slows this one's host): build, forward and step ms
+    with the modes in turns, and kernels per forward and per step."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.lattice import build_pyramid
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.models import HPLFlowNet
+    from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
+    from hplflownet_tpu_torch.pipeline import (batched_flow_forward, flow_forward,
+                                               make_lattice_spec)
+    from hplflownet_tpu_torch.tools.fused_build_bench import fused_build
+    from hplflownet_tpu_torch.train.step import loss_and_grad
+
+    pcs = synthetic_frustum_clouds(2, NUM_POINTS, seed=0)
+    pc1, pc2 = (torch.from_numpy(p[0]).to(DEVICE) for p in pcs)
+    fields = 0
+    for name, sfm, caps in (("flagship", SFM7, CAPACITIES),
+                            ("shallow", SFM5, SHALLOW_CAPACITIES)):
+        spec = make_lattice_spec(sfm, caps)
+        tables = {}
+        for mode in ("0",) + FUSED_BUILD_MODES:
+            with fused_build(mode), torch.inference_mode():
+                tables[mode] = _pyramid_fields(build_pyramid(spec, pc1, pc2))
+        for mode in FUSED_BUILD_MODES:
+            fields += _same(f"{name} tables, HPL_FUSED_BUILD={mode} vs 0",
+                            tables[mode], tables["0"])
+    del tables
+
+    spec = make_lattice_spec(SFM7, CAPACITIES)
+    model = HPLFlowNet(SFM7, compute_dtype="bfloat16", device=DEVICE)
+    params_from_jax(seeded_jax_params(model, 0), model)
+    params = dict(model.named_parameters())
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in dict(
+        pc1=pcs[0][:1], pc2=pcs[1][:1], sf=pcs[1][:1] - pcs[0][:1],
+        valid1=np.ones((1, NUM_POINTS), bool),
+        valid2=np.ones((1, NUM_POINTS), bool)).items()}
+    out, launches = {}, {}
+    for mode in ("0", FUSED_BUILD_MODES[0]):
+        with fused_build(mode):
+            flow, launches[f"forward_{mode}"] = _counted(
+                _kernel_wrappers(),
+                lambda: flow_forward(model, spec, pc1, pc2, adjoint_plans=False))
+            (loss, overflow, grads), launches[f"step_{mode}"] = _counted(
+                _kernel_wrappers(),
+                lambda: loss_and_grad(model, spec, params, batch))
+        if int(overflow) != 0:
+            raise AssertionError(f"HPL_FUSED_BUILD={mode}: overflow {int(overflow)}")
+        out[mode] = dict(flow=flow, loss=loss, **{f"grad {k}": g
+                                                   for k, g in grads.items()})
+    mode = FUSED_BUILD_MODES[0]
+    _require_launches(f"forward, HPL_FUSED_BUILD={mode}",
+                      {k: launches[f"forward_{mode}"][k]
+                       for k in ("stencil_gather_matmul", "rank_reduce")})
+    _require_launches(f"train step, HPL_FUSED_BUILD={mode}", launches[f"step_{mode}"])
+    _same(f"flagship flow, loss and gradients, HPL_FUSED_BUILD={mode} vs 0",
+          out[mode], out["0"])
+    n_leaves = len(out["0"]) - 2
+    del out
+
+    # a batch of two pairs, some points invalid in each cloud
+    b1 = torch.from_numpy(pcs[0]).to(DEVICE)
+    b2 = torch.from_numpy(pcs[1]).to(DEVICE)
+    v1 = torch.ones((2, NUM_POINTS), dtype=torch.bool, device=DEVICE)
+    v2 = v1.clone()
+    v1[0, ::7] = False
+    v2[1, 3::5] = False
+    batched = batched_flow_forward(model, spec, b1, b2, v1, v2)
+    single = torch.stack([flow_forward(model, spec, b1[i], b2[i], v1[i], v2[i])
+                          for i in range(2)])
+    if batched.shape != (2, NUM_POINTS, 3) or not torch.equal(batched, single):
+        raise AssertionError(f"batched_flow_forward {tuple(batched.shape)} is "
+                             f"not per-sample flow_forward bit for bit")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fused_build.json")
+        caps = (CAPACITIES if FUSED_BUILD_ARCH == "HPLFlowNet"
+                else SHALLOW_CAPACITIES)
+        cmd = [sys.executable, "-m", "hplflownet_tpu_torch.tools.fused_build_bench",
+               "--modes", ",".join(FUSED_BUILD_TIMED), "--arch", FUSED_BUILD_ARCH,
+               "--points", str(NUM_POINTS), "--capacities", ",".join(map(str, caps)),
+               "--reps", str(FUSED_BUILD_REPS), "--out", path]
+        if DEVICE == "cpu":
+            cmd += ["--device", "cpu"]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"fused_build_bench exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(path) as fd:
+            bench = json.load(fd)
+    results["fused_build"] = dict(fields=fields, leaves=n_leaves,
+                                  launches=launches, bench=bench)
+    log(f"fused build: {fields} table fields of the flagship and shallow "
+        f"pyramids under HPL_FUSED_BUILD={'/'.join(FUSED_BUILD_MODES)} equal "
+        f"to 0's; the flagship flow, loss and {n_leaves} gradient leaves under "
+        f"{mode} bit for bit; kernels 1-4 launched {launches[f'step_{mode}']} "
+        f"in its step; batched_flow_forward (2 pairs, some points invalid) == "
+        f"per-sample flow_forward bit for bit")
+    for k in ("build_ms", "forward_ms", "step_ms"):
+        log(f"fused build {k} in turns {bench['order']}: " + "; ".join(
+            f"{m} {np.round(v, 3).tolist()}" for m, v in bench[k].items()))
+    log(f"fused build: build_pyramid operators {bench['build_ops_forward']} "
+        f"(the forward's), {bench['build_ops_step']} (with the adjoint plans); "
+        f"device kernels per forward {bench['launches_forward']}, per step "
+        f"{bench['launches_step']} ({bench['card']}, {bench['clock']})")
+
+
 def kernels_line(results) -> dict:
     """The contract line: one entry per kernel, at its widest bf16 case."""
     def pick(kind, case):
@@ -2425,6 +2583,7 @@ def kernels_line(results) -> dict:
              for r in results.get("large", {}).get("sizes", [])}
     large_calls = results.get("large", {}).get("calls") or {}
     lattice = results.get("lattice", {})
+    fused_build = results.get("fused_build", {}).get("launches", {})
     for row in out:
         for key, counts in large.items():
             if row["name"] in counts:
@@ -2444,7 +2603,11 @@ def kernels_line(results) -> dict:
                 ("launches_bench_step", bench.get("step", {})),
                 ("launches_bench_forward", bench.get("forward", {})),
                 ("launches_synthetic_train", synthetic.get("train_launches", {})),
-                ("launches_synthetic_eval", synthetic.get("eval_launches", {}))):
+                ("launches_synthetic_eval", synthetic.get("eval_launches", {})),
+                ("launches_fused_build_forward",
+                 fused_build.get(f"forward_{FUSED_BUILD_MODES[0]}", {})),
+                ("launches_fused_build_step",
+                 fused_build.get(f"step_{FUSED_BUILD_MODES[0]}", {}))):
             if row["name"] in counts:
                 row[key] = counts[row["name"]]
     return {"kernels": out}
@@ -2508,7 +2671,8 @@ def main(argv=None) -> int:
               ("dp", lambda: phase_dp(results)),
               ("lattice", lambda: phase_lattice(results)),
               ("op_profile", lambda: phase_op_profile(results)),
-              ("plans", lambda: phase_plans(results))]
+              ("plans", lambda: phase_plans(results)),
+              ("fused_build", lambda: phase_fused_build(results))]
     only = None if args.phases is None else args.phases.split(",")
     if only is not None and set(only) - {n for n, _ in phases}:
         print(f"chip_smoke: unknown phases {sorted(set(only) - {n for n, _ in phases})}",

@@ -16,12 +16,19 @@ are still dropped and counted per cloud, as there.
 Index tables are stencil-major — ``(F, H)``, ``(Cc, H)``, ``(U, H)`` — as
 in the JAX package, so they compare one for one.  Nothing here reads a
 device tensor back to the host: counts stay 0-dim tensors.
+
+``HPL_FUSED_BUILD`` (read at each :func:`build_pyramid` call, as in the
+JAX package; off by default) builds both clouds of a scale from one
+tagged sort and probes both tables in one join
+(:func:`_build_two_from_elevated`, :func:`_probe_two`): the same tables,
+bit for bit, from about a third fewer operators.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -39,6 +46,10 @@ __all__ = ["probe_sharding", "ScaleSpec", "LatticeSpec", "CloudLattice",
 _DELTA_MARGIN = 16   # headroom for stencil deltas (|combined offset| <= 8)
 _SENTINEL = int(np.iinfo(np.int32).max)
 _SENT_LO = (1 << 30) - 1
+# the fused two-cloud joins and sort tag cloud 2's keys with bit 62 of the
+# int64 key (_key64 fills bits 0-61): every key of cloud 1, its sentinels
+# included, then sorts before every key of cloud 2
+_TAG = 1 << 62
 _I32 = torch.int32
 
 
@@ -215,14 +226,33 @@ def _probe(vkeys, qwords):
 
 
 def _probe_local(vkeys, qwords):
-    table = _key64(vkeys)
     q = _key64(qwords)
+    idx, found = _search(_key64(vkeys), q.reshape(-1))
+    return idx.reshape(q.shape), found.reshape(q.shape)
+
+
+def _search(table: torch.Tensor, q: torch.Tensor):
+    """(idx, found) of int64 keys ``q`` in the sorted int64 ``table``."""
     n_t = table.shape[0]
-    idx = torch.searchsorted(table, q.reshape(-1), side="left",
-                             out_int32=True).reshape(q.shape)
+    idx = torch.searchsorted(table, q, side="left", out_int32=True)
     found = table[idx.clamp(max=n_t - 1).long()] == q
-    found = found & (idx < n_t)
-    return idx, found
+    return idx, found & (idx < n_t)
+
+
+def _probe_two(vkeys_a, qa, vkeys_b, qb):
+    """Both clouds' probes as one join over the tagged table ``[a | b]``
+    -> ``(idx_a, found_a, idx_b, found_b)``, each as :func:`_probe` gives
+    it where found (b's indices rebased to its own table).  Under
+    :func:`probe_sharding` the two probes run apart, split over the taps."""
+    if _PROBE_SHARD.get() is not None:
+        return (*_probe(vkeys_a, qa), *_probe(vkeys_b, qb))
+    na, ha = qa[0].numel(), vkeys_a[0].shape[0]
+    idx, found = _search(
+        torch.cat([_key64(vkeys_a), _key64(vkeys_b) | _TAG]),
+        torch.cat([_key64(qa).reshape(-1), _key64(qb).reshape(-1) | _TAG]))
+    return (idx[:na].reshape(qa[0].shape), found[:na].reshape(qa[0].shape),
+            (idx[na:] - ha).reshape(qb[0].shape),
+            found[na:].reshape(qb[0].shape))
 
 
 # ---------------------------------------------------------------------------
@@ -302,13 +332,108 @@ def _build_from_elevated(elevated: torch.Tensor, valid: torch.Tensor,
     )
 
 
-def _neighbor_table(cl: CloudLattice, offsets: np.ndarray, d: int,
-                    bits: int = 10) -> torch.Tensor:
-    """(F, H) blur-neighbor ids; -1 = absent.  Row 0 is the zero offset."""
+def _build_two_from_elevated(elev1: torch.Tensor, valid1: torch.Tensor,
+                             elev2: torch.Tensor, valid2: torch.Tensor,
+                             capacity: int, bits: int = 10) -> tuple:
+    """Both clouds' lattices from one tagged sort: field for field the two
+    :func:`_build_from_elevated` calls, splat plans included.
+
+    The tag (``_TAG``) puts every key of cloud 1 before every key of cloud
+    2, so one stable sort of the 2m keys gives ``[cloud 1 sorted | cloud 2
+    sorted]``, each cloud's sentinels last in its half and its equal keys
+    in their standalone order.  Every per-cloud quantity is then a row of a
+    (2, ...) tensor, computed for both clouds at once; cloud 2's ranks are
+    the global ones less cloud 1's unique count, which stays on the device.
+    """
+    assert elev1.shape == elev2.shape, (elev1.shape, elev2.shape)
+    dev = elev1.device
+    n, d1 = elev1.shape
+    d = d1 - 1
+    m = n * d1
+    kb = simplex_from_elevated(torch.cat([elev1, elev2]))
+
+    bound = (1 << (bits - 1)) - 1 - _DELTA_MARGIN
+    in_range = (kb.keys.abs() <= bound).reshape(2 * n, -1).all(dim=1)
+    valid = torch.cat([valid1, valid2])
+    range_dropped = (valid & ~in_range).reshape(2, n).sum(dim=1)
+    valid = valid & in_range
+
+    words = _pack_keys(kb.keys, d, bits)                      # (2N, d1) each
+    flat = tuple(torch.where(valid[:, None], w, _SENTINEL).reshape(-1)
+                 for w in words)
+    key = _key64(flat)
+    key[m:] |= _TAG
+    skey, perm = torch.sort(key, stable=True)
+    perm = perm.to(_I32)
+    sw = tuple(w[perm.long()] for w in flat)
+    real = (sw[0] & _SENT_LO) != _SENT_LO
+    diff = skey[1:] != skey[:-1]
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), diff]) & real
+
+    num_unique = is_new.reshape(2, m).sum(dim=1, dtype=torch.int32)   # (2,)
+    total_real = real.reshape(2, m).sum(dim=1, dtype=torch.int32)[:, None]
+    overflow = (num_unique - capacity).clamp(min=0) + range_dropped
+    # cloud 2's rank-q run starts where the global rank reaches q + nu1
+    rank_base = (torch.cumsum(num_unique, dim=0, dtype=_I32) - num_unique)[:, None]
+    ranks = (torch.cumsum(is_new.to(_I32), dim=0, dtype=_I32) - 1).reshape(2, m)
+    q = torch.arange(capacity + 1, dtype=_I32, device=dev)
+    starts = torch.searchsorted(ranks.reshape(-1), q + rank_base, side="left",
+                                out_int32=True)                   # (2, cap + 1)
+    ranks = ranks - rank_base
+    lo = device_constant(np.array([[0], [m]], np.int32), dev)   # half offsets
+
+    rank_idx = q[:capacity]
+    nu = num_unique[:, None]
+    rank_live = rank_idx < nu
+    vertex_start = torch.where(rank_live, starts[:, :capacity] - lo, total_real)
+    vertex_end = torch.where(rank_idx + 1 < nu, starts[:, 1:] - lo, total_real)
+    vertex_end = torch.where(rank_live, vertex_end, vertex_start)
+    vertex_valid = vertex_start < vertex_end
+
+    safe_pos = starts[:, :capacity].clamp(max=2 * m - 1).long()
+    vkeys = tuple(torch.where(vertex_valid, w[safe_pos], _SENTINEL) for w in sw)
+
+    ids_sorted = torch.where(real & (ranks.reshape(-1) < capacity),
+                             ranks.reshape(-1), -1)
+    ids_flat = torch.empty_like(ids_sorted)
+    ids_flat[perm.long()] = ids_sorted
+    lattice_offset = ids_flat.reshape(2, n, d1)
+    barycentric = torch.where(valid[:, None], kb.barycentric, 0.0).reshape(2, n, d1)
+    el_minus_gr = torch.where(valid[:, None], kb.el_minus_gr, 0.0).reshape(2, n, d1)
+
+    # the seam is a key change, so cloud 2's first entry starts a run; each
+    # half is padded to whole 128-entry blocks, as local_ranks blocks it
+    same_prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), ~diff])
+    pad = (-m) % 128
+    same_prev = same_prev.reshape(2, m)
+    if pad:
+        same_prev = torch.cat([same_prev, same_prev.new_zeros(2, pad)], dim=1)
+    lrank = local_ranks(same_prev.reshape(-1)).reshape(2, m + pad)
+    perm = perm.reshape(2, m) - lo
+    num_valid = num_unique.clamp(max=capacity).to(_I32)
+    overflow = overflow.to(_I32)
+    return tuple(CloudLattice(
+        lattice_offset=lattice_offset[c],
+        barycentric=barycentric[c],
+        el_minus_gr=el_minus_gr[c],
+        vkeys=tuple(w[c] for w in vkeys),
+        vertex_valid=vertex_valid[c],
+        num_valid=num_valid[c],
+        overflow=overflow[c],
+        splat_plan=ReducePlan(ids=lattice_offset[c].reshape(-1), perm=perm[c],
+                              start=vertex_start[c], end=vertex_end[c],
+                              lrank=lrank[c, :m], r0=ranks[c, ::128]),
+    ) for c in range(2))
+
+
+def _blur_queries(cl: CloudLattice, offsets: np.ndarray, d: int, bits: int):
     assert not offsets[0].any(), "stencil row 0 must be the zero offset"
+    return _offset_queries(offsets[1:], cl.vkeys, cl.vertex_valid[None, :],
+                           d, bits)
+
+
+def _blur_table(cl: CloudLattice, idx, found) -> torch.Tensor:
     ok_v = cl.vertex_valid[None, :]
-    qw = _offset_queries(offsets[1:], cl.vkeys, ok_v, d, bits)
-    idx, found = _probe(cl.vkeys, qw)
     h = cl.vkeys[0].shape[0]
     iota = torch.arange(h, dtype=_I32, device=ok_v.device)
     self_row = torch.where(cl.vertex_valid, iota, -1)[None, :]
@@ -316,17 +441,33 @@ def _neighbor_table(cl: CloudLattice, offsets: np.ndarray, d: int,
     return torch.cat([self_row, rest], dim=0)
 
 
+def _neighbor_table(cl: CloudLattice, offsets: np.ndarray, d: int,
+                    bits: int = 10) -> torch.Tensor:
+    """(F, H) blur-neighbor ids; -1 = absent.  Row 0 is the zero offset."""
+    return _blur_table(cl, *_probe(cl.vkeys, _blur_queries(cl, offsets, d, bits)))
+
+
+def _neighbor_table_two(cl1: CloudLattice, cl2: CloudLattice,
+                        offsets: np.ndarray, d: int, bits: int = 10) -> tuple:
+    """Both clouds' :func:`_neighbor_table` from one fused probe."""
+    i1, f1, i2, f2 = _probe_two(cl1.vkeys, _blur_queries(cl1, offsets, d, bits),
+                                cl2.vkeys, _blur_queries(cl2, offsets, d, bits))
+    return _blur_table(cl1, i1, f1), _blur_table(cl2, i2, f2)
+
+
 def _corr_tables(cl1: CloudLattice, cl2: CloudLattice,
                  filter_offsets: np.ndarray, corr_offsets: np.ndarray, d: int,
                  pc1_corr: torch.Tensor | None = None,
-                 with_inverse: bool = False, bits: int = 10):
+                 with_inverse: bool = False, bits: int = 10,
+                 fuse: bool = False):
     """Correlation index tables in unique-offset form.
 
     pc1_corr[c, h] = id of (key1[h] + corr_offsets[c]) in the cloud-1 table;
     the F x Cc combined offsets (filter + corr) collapse to U distinct ones
     (225 -> 65 at radius 1): uniq_tab[u, h] = id of key1[h] + uniq[u] in the
     cloud-2 table, and inverse[f, c] = u.  ``with_inverse`` also builds
-    uniq_inv[u, r] = id1(key2[r] - uniq[u]), the backward's index map.
+    uniq_inv[u, r] = id1(key2[r] - uniq[u]), the backward's index map;
+    ``fuse`` probes it in one join with ``uniq_tab`` (:func:`_probe_two`).
     """
     ok_v = cl1.vertex_valid[None, :]
     dev = ok_v.device
@@ -342,15 +483,19 @@ def _corr_tables(cl1: CloudLattice, cl2: CloudLattice,
     inverse_m = device_constant(inverse.astype(np.int32).reshape(nf, nc), dev)
 
     qw = _offset_queries(uniq, cl1.vkeys, ok_v, d, bits)
-    idx2, found2 = _probe(cl2.vkeys, qw)
-    uniq_tab = torch.where(found2 & ok_v, idx2, -1)
-
     uniq_inv = torch.zeros((1, 1), dtype=_I32, device=dev)
     if with_inverse:
         ok_v2 = cl2.vertex_valid[None, :]
         rw = _offset_queries(-uniq, cl2.vkeys, ok_v2, d, bits)
-        idx3, found3 = _probe(cl1.vkeys, rw)
+        if fuse:
+            idx2, found2, idx3, found3 = _probe_two(cl2.vkeys, qw, cl1.vkeys, rw)
+        else:
+            idx2, found2 = _probe(cl2.vkeys, qw)
+            idx3, found3 = _probe(cl1.vkeys, rw)
         uniq_inv = torch.where(found3 & ok_v2, idx3, -1)
+    else:
+        idx2, found2 = _probe(cl2.vkeys, qw)
+    uniq_tab = torch.where(found2 & ok_v, idx2, -1)
     return pc1_corr, uniq_tab, inverse_m, uniq_inv
 
 
@@ -374,6 +519,19 @@ def _next_elevated(cl: CloudLattice, d: int, scale: float, next_scale: float,
 # full multi-scale pyramid
 # ---------------------------------------------------------------------------
 
+def _fused_build_threshold() -> int:
+    """The largest capacity whose scale is built fused, from
+    ``HPL_FUSED_BUILD``: ``"0"`` or empty (the default) fuses none (-1),
+    ``"1"`` every scale, any other integer the scales of at most that
+    capacity (the JAX package's policy)."""
+    v = os.environ.get("HPL_FUSED_BUILD", "0").strip()
+    if v in ("", "0"):
+        return -1
+    if v == "1":
+        return 1 << 30
+    return int(v)
+
+
 def build_pyramid(spec: LatticeSpec,
                   pc1: torch.Tensor,                 # (N, d) float32
                   pc2: torch.Tensor,
@@ -385,7 +543,10 @@ def build_pyramid(spec: LatticeSpec,
     Runs on the points' device.  Scale 0 elevates the metric points; each
     deeper scale's points are the previous scale's (padded) vertices, with
     a validity mask.  ``adjoint_plans=False`` skips the backward-only
-    ``pc2_corr_uniq_inv`` tables.
+    ``pc2_corr_uniq_inv`` tables.  A scale whose capacity is within
+    ``HPL_FUSED_BUILD``'s threshold (:func:`_fused_build_threshold`)
+    probes both clouds in fused joins, and builds them from one sort when
+    their point arrays have one shape; the tables are the same.
     """
     dev = pc1.device
     d = spec.d
@@ -399,16 +560,25 @@ def build_pyramid(spec: LatticeSpec,
     zero = torch.zeros((), dtype=_I32, device=dev)
     none = torch.zeros((1, 1), dtype=_I32, device=dev)
 
+    fuse_threshold = _fused_build_threshold()
     scales_out = []
     for i, ss in enumerate(spec.scales):
-        cl1 = _build_from_elevated(elev1, valid1, ss.capacity, bits)
-        cl2 = _build_from_elevated(elev2, valid2, ss.capacity, bits)
+        fuse = ss.capacity <= fuse_threshold
+        if fuse and elev1.shape == elev2.shape:
+            cl1, cl2 = _build_two_from_elevated(elev1, valid1, elev2, valid2,
+                                                ss.capacity, bits)
+        else:
+            cl1 = _build_from_elevated(elev1, valid1, ss.capacity, bits)
+            cl2 = _build_from_elevated(elev2, valid2, ss.capacity, bits)
 
         nb1 = nb2 = none
         if ss.blur_radius != -1:
             offs = neighborhood_offsets(ss.blur_radius, d)
-            nb1 = _neighbor_table(cl1, offs, d, bits)
-            nb2 = _neighbor_table(cl2, offs, d, bits)
+            if fuse:
+                nb1, nb2 = _neighbor_table_two(cl1, cl2, offs, d, bits)
+            else:
+                nb1 = _neighbor_table(cl1, offs, d, bits)
+                nb2 = _neighbor_table(cl2, offs, d, bits)
 
         corr1 = corr2u = corr2inv = corr2u_inv = none
         if ss.corr_filter_radius != -1:
@@ -420,7 +590,7 @@ def build_pyramid(spec: LatticeSpec,
             corr1, corr2u, corr2inv, corr2u_inv = _corr_tables(
                 cl1, cl2, f_offs, c_offs, d,
                 pc1_corr=nb1 if reuse else None,
-                with_inverse=adjoint_plans, bits=bits)
+                with_inverse=adjoint_plans, bits=bits, fuse=fuse)
 
         scales_out.append(ScalePair(
             pc1_barycentric=cl1.barycentric,

@@ -2,7 +2,8 @@
 
 Port of ``hplflownet_tpu/pipeline.py``.  ``flow_forward`` runs on the
 model's device (the CUDA card unless the model was made with
-``device="cpu"``) under ``torch.inference_mode()``.
+``device="cpu"``) under ``torch.inference_mode()``; ``batched_flow_forward``
+runs it over a (B, N, d) batch, one sample at a time.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from .lattice.build import (LatticeSpec, ScaleSpec, build_pyramid,
                             default_capacities)
 
-__all__ = ["make_lattice_spec", "flow_forward"]
+__all__ = ["make_lattice_spec", "flow_forward", "batched_flow_forward"]
 
 
 def make_lattice_spec(scales_filter_map: Sequence[Sequence[float]],
@@ -62,3 +63,20 @@ def flow_forward(model, spec: LatticeSpec, pc1, pc2, valid1=None,
         scales = build_pyramid(spec, pc1, pc2, valid1, valid2,
                                adjoint_plans=adjoint_plans)
         return model(pc1, pc2, scales)
+
+
+def batched_flow_forward(model, spec: LatticeSpec, pc1, pc2, valid1=None,
+                         valid2=None) -> torch.Tensor:
+    """(B, N, d) batches -> (B, N, 3) flow on the model's device.
+
+    Each sample runs :func:`flow_forward` in turn (the JAX package maps
+    over the samples with ``lax.map``: a pyramid is built per pair).
+    Missing valid masks are all True.
+    """
+    n_batch = len(pc1)
+    if valid1 is None:
+        valid1 = [None] * n_batch
+    if valid2 is None:
+        valid2 = [None] * n_batch
+    return torch.stack([flow_forward(model, spec, pc1[b], pc2[b], valid1[b],
+                                     valid2[b]) for b in range(n_batch)])

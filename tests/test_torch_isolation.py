@@ -55,7 +55,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[1])
     # every subpackage and module was walked, the later slices' too
-    assert n >= 79, r.stdout
+    assert n >= 80, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
                 "models.hplflownet_shallow", "data", "data.io", "data.transforms",
                 "data.datasets", "data.loader", "train.metrics",
@@ -76,7 +76,7 @@ def test_port_and_chip_smoke_import_without_jax():
                 "native.bindings", "native.check", "native.__main__",
                 "tools.large_cloud_bench", "tools.measure_capacities",
                 "tools.pyramid_bench", "tools.op_profile",
-                "tools.port_torch_weights"):
+                "tools.port_torch_weights", "tools.fused_build_bench"):
         assert f"hplflownet_tpu_torch.{mod}" in r.stdout.split(), mod
 
 
