@@ -1,0 +1,26 @@
+"""lattice.build_ms: ``lattice.build.build_pyramid(..., adjoint_plans=False)``
+of one pool pair alone, mean host ms over a stretch of back-to-back calls
+ending in a synchronise."""
+
+import torch
+
+from flowbench.metrics import on_card, stretch_ms
+
+
+def span(session):
+    if session.entry != "forward" or not on_card(session):
+        return None
+    from hplflownet_tpu_torch.lattice.build import build_pyramid
+    prog, dev = session.program, session.device
+    a = torch.from_numpy(session.pool.pc1[0]).to(dev)
+    b = torch.from_numpy(session.pool.pc2[0]).to(dev)
+
+    def build():
+        with torch.inference_mode():
+            build_pyramid(prog.spec, a, b, adjoint_plans=False)
+
+    return stretch_ms(build, dev)
+
+
+def read(rec):
+    return rec.spans.get("lattice.build_ms")

@@ -1,0 +1,13 @@
+"""mfu.train: three times the model's forward operations (forward, input
+and weight gradients) of every step of the window, over the window's
+seconds times the card's bf16 dense peak, in %."""
+
+from flowbench.metrics import on_card
+from flowbench.work import PEAKS, model_flops
+
+
+def read(rec):
+    if rec.entry != "train" or not rec.work or not on_card(rec):
+        return None
+    flops = 3.0 * sum(model_flops(rec.work[k]) for k in rec.window_ks)
+    return 100.0 * flops / (rec.window_s * PEAKS["flops"][rec.cfg["compute_dtype"]])
