@@ -118,11 +118,9 @@ Phases, each printing a line with its elapsed seconds:
             ms/pair sharded and unsharded on the host clock (two ranks
             share one card: no scaling figure); then one NCCL rank at
             world size 1, bit for bit;
-17. op_profile  ``tools.op_profile`` of the forward and the train step
-            (torch.profiler, 2 calls each): the top kernels by device time;
-18. plans   the CUDA kernels that one pair's stencil plans launch
+17. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; tracing slows the host afterwards);
-19. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
+18. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
             sort and probed in one join): every table of the flagship and
             the shallow model's pyramids for the 8192-point pair under "1"
             and "3584" against "0", the flagship flow and one train step's
@@ -2343,29 +2341,6 @@ def phase_lattice(results):
                 f"{v['worst']:.3e}" for k, v in per_call.items()))
 
 
-OP_PROFILE_REPS = 2
-
-
-def phase_op_profile(results):
-    """``tools.op_profile`` of the flagship forward and train step at
-    OP_PROFILE_REPS calls each (torch.profiler: after the timed phases, as
-    tracing slows the host for the rest of the process)."""
-    from hplflownet_tpu_torch.tools import op_profile
-    out = {}
-    for train in (False, True):
-        res = op_profile.run(DEVICE, train=train, num_points=NUM_POINTS,
-                             reps=OP_PROFILE_REPS, top=10)
-        unit = "step" if train else "pair"
-        if not res["top"] or res["busy_ms_per_" + unit] <= 0:
-            raise AssertionError(f"op_profile {res['what']}: no kernel traced")
-        out[unit] = res
-        log(f"op_profile {res['what']}: {res['busy_ms_per_' + unit]:.3f} ms busy "
-            f"of {res['wall_ms_per_' + unit]:.3f} ms, "
-            f"{res['kernels_per_' + unit]:.0f} kernels; top: " + "; ".join(
-                f"{r['name'][:40]} {r['ms']:.3f} ms" for r in res["top"][:3]))
-    results["op_profile"] = out
-
-
 def phase_plans(results):
     """The CUDA kernels one pair's stencil plans launch, counted with
     torch.profiler; last, because the profiler's tracing slows the host
@@ -2670,7 +2645,6 @@ def main(argv=None) -> int:
               ("native", lambda: phase_native(results)),
               ("dp", lambda: phase_dp(results)),
               ("lattice", lambda: phase_lattice(results)),
-              ("op_profile", lambda: phase_op_profile(results)),
               ("plans", lambda: phase_plans(results)),
               ("fused_build", lambda: phase_fused_build(results))]
     only = None if args.phases is None else args.phases.split(",")

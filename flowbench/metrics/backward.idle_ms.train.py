@@ -1,0 +1,16 @@
+"""backward.idle_ms.train: the card's idle time per step of the train entry
+in the backward, in ms: the span ``train.backward``:
+``torch.autograd.grad``, whose kernels the autograd engine's thread launches
+while the calling thread waits in it; each gap between device operations
+charged to the innermost span open on the calling thread at its midpoint.
+From a profiled stretch of the program's spans (``flowbench.layers``)."""
+
+from flowbench.layers import layers, value
+
+
+def span(session):
+    return layers(session)
+
+
+def read(rec):
+    return value(rec, "train", "layers", "backward", "idle_ms")

@@ -1,0 +1,16 @@
+"""plans.device_ms.fwd: the card's time per pair of the forward entry in the
+stencil plans, in ms: the span ``stencil.plans``
+(``models.hplflownet.stencil_plans``); each device operation charged to the
+innermost span that launched it, counting only its time no earlier operation
+covers.  From a profiled stretch of the program's spans
+(``flowbench.layers``)."""
+
+from flowbench.layers import layers, value
+
+
+def span(session):
+    return layers(session)
+
+
+def read(rec):
+    return value(rec, "forward", "layers", "plans", "device_ms")

@@ -37,6 +37,7 @@ import torch
 from ..device import device_constant, scalar
 from ..ops.segment import ReducePlan, local_ranks
 from ..ops.shard import axis_shard, gather_parts, local_part
+from ..utils.profiling import count, span
 from .geometry import elevate, simplex_from_elevated
 from .offsets import neighborhood_offsets
 
@@ -532,38 +533,11 @@ def _fused_build_threshold() -> int:
     return int(v)
 
 
-def build_pyramid(spec: LatticeSpec,
-                  pc1: torch.Tensor,                 # (N, d) float32
-                  pc2: torch.Tensor,
-                  valid1: torch.Tensor | None = None,  # (N,) bool
-                  valid2: torch.Tensor | None = None,
-                  adjoint_plans: bool = True) -> list:
-    """All per-scale lattice tables for a cloud pair (single sample).
-
-    Runs on the points' device.  Scale 0 elevates the metric points; each
-    deeper scale's points are the previous scale's (padded) vertices, with
-    a validity mask.  ``adjoint_plans=False`` skips the backward-only
-    ``pc2_corr_uniq_inv`` tables.  A scale whose capacity is within
-    ``HPL_FUSED_BUILD``'s threshold (:func:`_fused_build_threshold`)
-    probes both clouds in fused joins, and builds them from one sort when
-    their point arrays have one shape; the tables are the same.
-    """
-    dev = pc1.device
-    d = spec.d
-    bits = spec.coord_bits
-    if valid1 is None:
-        valid1 = torch.ones(pc1.shape[0], dtype=torch.bool, device=dev)
-    if valid2 is None:
-        valid2 = torch.ones(pc2.shape[0], dtype=torch.bool, device=dev)
-    elev1 = elevate(pc1, spec.scales[0].scale)
-    elev2 = elevate(pc2, spec.scales[0].scale)
-    zero = torch.zeros((), dtype=_I32, device=dev)
-    none = torch.zeros((1, 1), dtype=_I32, device=dev)
-
-    fuse_threshold = _fused_build_threshold()
-    scales_out = []
-    for i, ss in enumerate(spec.scales):
-        fuse = ss.capacity <= fuse_threshold
+def _scale_pair(ss: ScaleSpec, elev1, valid1, elev2, valid2, d: int,
+                bits: int, fuse: bool, adjoint_plans: bool, zero, none):
+    """One scale of :func:`build_pyramid`: -> (cloud 1's lattice, cloud
+    2's, the ScalePair)."""
+    with span("lattice.dedup"):
         if fuse and elev1.shape == elev2.shape:
             cl1, cl2 = _build_two_from_elevated(elev1, valid1, elev2, valid2,
                                                 ss.capacity, bits)
@@ -571,6 +545,7 @@ def build_pyramid(spec: LatticeSpec,
             cl1 = _build_from_elevated(elev1, valid1, ss.capacity, bits)
             cl2 = _build_from_elevated(elev2, valid2, ss.capacity, bits)
 
+    with span("lattice.tables"):
         nb1 = nb2 = none
         if ss.blur_radius != -1:
             offs = neighborhood_offsets(ss.blur_radius, d)
@@ -592,34 +567,82 @@ def build_pyramid(spec: LatticeSpec,
                 pc1_corr=nb1 if reuse else None,
                 with_inverse=adjoint_plans, bits=bits, fuse=fuse)
 
-        scales_out.append(ScalePair(
-            pc1_barycentric=cl1.barycentric,
-            pc2_barycentric=cl2.barycentric,
-            pc1_el_minus_gr=cl1.el_minus_gr,
-            pc2_el_minus_gr=cl2.el_minus_gr,
-            pc1_lattice_offset=cl1.lattice_offset,
-            pc2_lattice_offset=cl2.lattice_offset,
-            pc1_blur_neighbors=nb1,
-            pc2_blur_neighbors=nb2,
-            pc1_corr_indices=corr1,
-            pc2_corr_uniq=corr2u,
-            pc2_corr_inverse=corr2inv,
-            pc1_num_valid=cl1.num_valid,
-            pc2_num_valid=cl2.num_valid,
-            pc1_overflow=cl1.overflow,
-            pc2_overflow=cl2.overflow,
-            pc1_splat_plan=cl1.splat_plan,
-            pc2_splat_plan=cl2.splat_plan,
-            pc2_corr_uniq_inv=corr2u_inv,
-            probe_overflow=zero,
-            stencil_overflow=zero,
-        ))
+    return cl1, cl2, ScalePair(
+        pc1_barycentric=cl1.barycentric,
+        pc2_barycentric=cl2.barycentric,
+        pc1_el_minus_gr=cl1.el_minus_gr,
+        pc2_el_minus_gr=cl2.el_minus_gr,
+        pc1_lattice_offset=cl1.lattice_offset,
+        pc2_lattice_offset=cl2.lattice_offset,
+        pc1_blur_neighbors=nb1,
+        pc2_blur_neighbors=nb2,
+        pc1_corr_indices=corr1,
+        pc2_corr_uniq=corr2u,
+        pc2_corr_inverse=corr2inv,
+        pc1_num_valid=cl1.num_valid,
+        pc2_num_valid=cl2.num_valid,
+        pc1_overflow=cl1.overflow,
+        pc2_overflow=cl2.overflow,
+        pc1_splat_plan=cl1.splat_plan,
+        pc2_splat_plan=cl2.splat_plan,
+        pc2_corr_uniq_inv=corr2u_inv,
+        probe_overflow=zero,
+        stencil_overflow=zero,
+    )
 
-        if i + 1 < len(spec.scales):
-            nxt = spec.scales[i + 1].scale
-            elev1, valid1 = _next_elevated(cl1, d, ss.scale, nxt, bits)
-            elev2, valid2 = _next_elevated(cl2, d, ss.scale, nxt, bits)
-    return scales_out
+
+def build_pyramid(spec: LatticeSpec,
+                  pc1: torch.Tensor,                 # (N, d) float32
+                  pc2: torch.Tensor,
+                  valid1: torch.Tensor | None = None,  # (N,) bool
+                  valid2: torch.Tensor | None = None,
+                  adjoint_plans: bool = True) -> list:
+    """All per-scale lattice tables for a cloud pair (single sample).
+
+    Runs on the points' device.  Scale 0 elevates the metric points; each
+    deeper scale's points are the previous scale's (padded) vertices, with
+    a validity mask.  ``adjoint_plans=False`` skips the backward-only
+    ``pc2_corr_uniq_inv`` tables.  A scale whose capacity is within
+    ``HPL_FUSED_BUILD``'s threshold (:func:`_fused_build_threshold`)
+    probes both clouds in fused joins, and builds them from one sort when
+    their point arrays have one shape; the tables are the same.
+
+    Inside ``utils.profiling.tracing()`` it marks the spans
+    ``lattice.build``, ``lattice.scale<i>`` per scale and, in each,
+    ``lattice.dedup``, ``lattice.tables`` and ``lattice.next``, and counts
+    ``lattice.vertices`` (both clouds' ``num_valid``) against
+    ``lattice.rows`` (2 x capacity) per scale.
+    """
+    with span("lattice.build"):
+        dev = pc1.device
+        d = spec.d
+        bits = spec.coord_bits
+        if valid1 is None:
+            valid1 = torch.ones(pc1.shape[0], dtype=torch.bool, device=dev)
+        if valid2 is None:
+            valid2 = torch.ones(pc2.shape[0], dtype=torch.bool, device=dev)
+        elev1 = elevate(pc1, spec.scales[0].scale)
+        elev2 = elevate(pc2, spec.scales[0].scale)
+        zero = torch.zeros((), dtype=_I32, device=dev)
+        none = torch.zeros((1, 1), dtype=_I32, device=dev)
+
+        fuse_threshold = _fused_build_threshold()
+        scales_out = []
+        for i, ss in enumerate(spec.scales):
+            with span(f"lattice.scale{i}"):
+                cl1, cl2, sp = _scale_pair(
+                    ss, elev1, valid1, elev2, valid2, d, bits,
+                    ss.capacity <= fuse_threshold, adjoint_plans, zero, none)
+                scales_out.append(sp)
+                count("lattice.vertices", cl1.num_valid)
+                count("lattice.vertices", cl2.num_valid)
+                count("lattice.rows", 2 * ss.capacity)
+                if i + 1 < len(spec.scales):
+                    with span("lattice.next"):
+                        nxt = spec.scales[i + 1].scale
+                        elev1, valid1 = _next_elevated(cl1, d, ss.scale, nxt, bits)
+                        elev2, valid2 = _next_elevated(cl2, d, ss.scale, nxt, bits)
+        return scales_out
 
 
 def default_capacities(num_points: int, scales: Sequence[Sequence[float]],

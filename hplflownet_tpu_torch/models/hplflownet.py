@@ -27,6 +27,7 @@ from ..kernels.stencil_plan import make_stencil_plans
 from ..lattice.offsets import filter_size, tap_negation
 from ..ops.bcl import BilateralConv, local_columns
 from ..ops.corr import BilateralCorrelation
+from ..utils.profiling import span
 from .layers import PointMLP
 
 __all__ = ["HPLFlowNet", "stencil_plans"]
@@ -86,6 +87,19 @@ class _LatticeFlowNet(nn.Module):
         self._device = resolve_device(device)
         self.compute_dtype = _DTYPES[compute_dtype]
 
+    def forward(self, pc1: torch.Tensor, pc2: torch.Tensor, scales) -> torch.Tensor:
+        """pc1, pc2: (N, dim) points; scales: one ``ScalePair`` per scale.
+
+        Returns the (N, 3) float32 scene flow of pc1.  Inside
+        ``utils.profiling.tracing()`` it marks ``model.forward`` and, in
+        it, ``stencil.plans``, ``model.embed``, ``model.down<s>``,
+        ``model.corr<s>``, ``model.up<s>`` (s the scale) and ``model.head``.
+        """
+        with span("model.forward"):
+            with span("stencil.plans"):
+                plans = stencil_plans(scales, lists=torch.is_grad_enabled())
+            return self._flow(pc1, pc2, scales, plans)
+
     def _fs(self, radius) -> int:
         return filter_size(int(radius), self._dim)
 
@@ -127,33 +141,44 @@ class _LatticeFlowNet(nn.Module):
 
     def _down(self, mod, scales, plans, s, f1, f2):
         sp = scales[s]
-        o1 = mod(_cat(self._emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
-                 splat_plan=sp.pc1_splat_plan,
-                 blur_neighbors=sp.pc1_blur_neighbors,
-                 blur_plan=plans[s]["pc1_blur"])
-        o2 = mod(_cat(sp.pc2_el_minus_gr.to(self.compute_dtype), f2),
-                 in_barycentric=sp.pc2_barycentric,
-                 splat_plan=sp.pc2_splat_plan,
-                 blur_neighbors=sp.pc2_blur_neighbors,
-                 blur_plan=plans[s]["pc2_blur"])
+        with span(f"model.down{s}"):
+            o1 = mod(_cat(self._emg1(sp), f1), in_barycentric=sp.pc1_barycentric,
+                     splat_plan=sp.pc1_splat_plan,
+                     blur_neighbors=sp.pc1_blur_neighbors,
+                     blur_plan=plans[s]["pc1_blur"])
+            o2 = mod(_cat(sp.pc2_el_minus_gr.to(self.compute_dtype), f2),
+                     in_barycentric=sp.pc2_barycentric,
+                     splat_plan=sp.pc2_splat_plan,
+                     blur_neighbors=sp.pc2_blur_neighbors,
+                     blur_plan=plans[s]["pc2_blur"])
         return o1, o2
 
     def _correlate(self, mod, scales, plans, s, f1, f2, prev):
         sp = scales[s]
-        return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
-                   sp.pc1_corr_indices, sp.pc2_corr_uniq,
-                   sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv,
-                   self_plan=plans[s]["pc1_corr"],
-                   cross_plan=plans[s]["pc2_corr"])
+        with span(f"model.corr{s}"):
+            return mod(f1, f2, prev, sp.pc1_barycentric, sp.pc1_splat_plan,
+                       sp.pc1_corr_indices, sp.pc2_corr_uniq,
+                       sp.pc2_corr_inverse, sp.pc2_corr_uniq_inv,
+                       self_plan=plans[s]["pc1_corr"],
+                       cross_plan=plans[s]["pc2_corr"])
 
     def _up(self, mod, scales, plans, feats, s):
         # blur on scale s's lattice, slice onto scale s's points
         sp = scales[s]
-        return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
-                   out_barycentric=sp.pc1_barycentric,
-                   out_lattice_offset=sp.pc1_lattice_offset,
-                   out_splat_plan=sp.pc1_splat_plan,
-                   blur_plan=plans[s]["pc1_blur"])
+        with span(f"model.up{s}"):
+            return mod(feats, blur_neighbors=sp.pc1_blur_neighbors,
+                       out_barycentric=sp.pc1_barycentric,
+                       out_lattice_offset=sp.pc1_lattice_offset,
+                       out_splat_plan=sp.pc1_splat_plan,
+                       blur_plan=plans[s]["pc1_blur"])
+
+    def _embed(self, pc1, pc2):
+        with span("model.embed"):
+            return self.conv1(pc1), self.conv1(pc2)
+
+    def _head(self, out):
+        with span("model.head"):
+            return self.conv4(self.conv3(self.conv2(out)))
 
 
 class HPLFlowNet(_LatticeFlowNet):
@@ -184,12 +209,7 @@ class HPLFlowNet(_LatticeFlowNet):
         self.conv3 = self._mlp((512,), 1024)
         self.conv4 = self._mlp((3,), 512, last_act=False)
 
-    def forward(self, pc1: torch.Tensor, pc2: torch.Tensor, scales) -> torch.Tensor:
-        """pc1, pc2: (N, dim) points; scales: the 7 ``ScalePair`` tables.
-
-        Returns the (N, 3) float32 scene flow of pc1.
-        """
-        plans = stencil_plans(scales, lists=torch.is_grad_enabled())
+    def _flow(self, pc1, pc2, scales, plans) -> torch.Tensor:
         emg1 = self._emg1
 
         def down(mod, s, f1, f2):
@@ -201,8 +221,7 @@ class HPLFlowNet(_LatticeFlowNet):
         def up(mod, feats, s):
             return self._up(mod, scales, plans, feats, s)
 
-        feat1 = self.conv1(pc1)
-        feat2 = self.conv1(pc2)
+        feat1, feat2 = self._embed(pc1, pc2)
         p1o1, p2o1 = down(self.bcn1, 0, feat1, feat2)
         p1o2, p2o2 = down(self.bcn2, 1, p1o1, p2o1)
         p1o3, p2o3 = down(self.bcn3, 2, p1o2, p2o2)
@@ -224,6 +243,4 @@ class HPLFlowNet(_LatticeFlowNet):
         out = up(self.bcn2_, _cat(emg1(scales[2]), out, p1o2), 1)
         out = up(self.bcn1_, _cat(emg1(scales[1]), out, p1o1), 0)
 
-        res = self.conv2(out)
-        res = self.conv3(res)
-        return self.conv4(res)
+        return self._head(out)

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from .hplflownet import _LatticeFlowNet, _cat, stencil_plans
+from .hplflownet import _LatticeFlowNet, _cat
 
 __all__ = ["HPLFlowNetShallow"]
 
@@ -48,12 +48,7 @@ class HPLFlowNetShallow(_LatticeFlowNet):
         self.conv3 = self._mlp((512,), 1024)
         self.conv4 = self._mlp((3,), 512, last_act=False)
 
-    def forward(self, pc1: torch.Tensor, pc2: torch.Tensor, scales) -> torch.Tensor:
-        """pc1, pc2: (N, dim) points; scales: the 5 ``ScalePair`` tables.
-
-        Returns the (N, 3) float32 scene flow of pc1.
-        """
-        plans = stencil_plans(scales, lists=torch.is_grad_enabled())
+    def _flow(self, pc1, pc2, scales, plans) -> torch.Tensor:
         emg1 = self._emg1
 
         def down(mod, s, f1, f2):
@@ -65,8 +60,7 @@ class HPLFlowNetShallow(_LatticeFlowNet):
         def up(mod, feats, s):
             return self._up(mod, scales, plans, feats, s)
 
-        feat1 = self.conv1(pc1)
-        feat2 = self.conv1(pc2)
+        feat1, feat2 = self._embed(pc1, pc2)
         p1o1, p2o1 = down(self.bcn1, 0, feat1, feat2)
         p1o2, p2o2 = down(self.bcn2, 1, p1o1, p2o1)
         p1o3, p2o3 = down(self.bcn3, 2, p1o2, p2o2)
@@ -85,6 +79,4 @@ class HPLFlowNetShallow(_LatticeFlowNet):
         out = up(self.bcn2_, _cat(emg1(scales[2]), out, p1o2), 1)
         out = up(self.bcn1_, _cat(emg1(scales[1]), out, p1o1), 0)
 
-        res = self.conv2(out)
-        res = self.conv3(res)
-        return self.conv4(res)
+        return self._head(out)

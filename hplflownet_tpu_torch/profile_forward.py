@@ -13,8 +13,8 @@ seeded weights, and reports:
   the lattice build and the model;
 * a ``torch.profiler`` trace of a few forwards: device time by kernel,
   grouped (the port's kernels, dense matmuls, sorts and searches, the
-  rest), the number of kernels launched per forward, and the device's idle
-  share (1 - device busy time / elapsed time).
+  rest) and the number of kernels launched per forward (no idle share:
+  the profiler slows the host, so the profiled wall overstates it).
 
 With ``--train`` it profiles the train step instead
 (``train.step.make_train_step``: batch 1, Adam at lr 1e-4, overflow skip):
@@ -93,13 +93,12 @@ def _report(kernels: dict, wall_ms: float, unit: str) -> dict:
         g[1] += cnt
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     print(f"profiled: {wall_ms:.3f} ms/{unit} wall, {busy_ms:.3f} ms device busy, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {n_launch:.0f} kernels per {unit}")
+          f"{n_launch:.0f} kernels per {unit}")
     for g, (ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:24s} {ms:9.3f} ms  {cnt:6.0f} launches")
     for name, (ms, cnt) in top:
         print(f"    {ms:9.4f} ms {cnt:6.0f}x  {name[:110]}")
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms,
                 **{f"kernels_per_{unit}": n_launch},
                 groups={g: {"ms": v[0], "launches": v[1]} for g, v in groups.items()},
                 top=[{"name": n, "ms": v[0], "launches": v[1]} for n, v in top])
@@ -158,7 +157,7 @@ def main(argv=None) -> dict:
               f"{args.reps} reps, {args.dtype})")
         wall_ms, kernels = _trace(one, 3)
         result.update(_report(kernels, wall_ms, "step"))
-        keys = ("train_ms", "device_busy_ms", "idle_share", "kernels_per_step")
+        keys = ("train_ms", "device_busy_ms", "kernels_per_step")
     else:
         def fwd():
             return flow_forward(model, spec, pc1[0], pc2[0], adjoint_plans=False)
@@ -180,7 +179,7 @@ def main(argv=None) -> dict:
         wall_ms, kernels = _trace(fwd, 3)
         result.update(_report(kernels, wall_ms, "pair"))
         keys = ("forward_ms", "build_ms", "model_ms", "device_busy_ms",
-                "idle_share", "kernels_per_pair")
+                "kernels_per_pair")
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

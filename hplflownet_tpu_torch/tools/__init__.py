@@ -30,8 +30,6 @@
                         overflow, ms/pair, peak memory;
 * ``measure_capacities`` per-scale vertex counts on a config's dataset;
 * ``pyramid_bench``     the lattice build's stages timed per scale;
-* ``op_profile``        the top kernels of a forward or train step
-                        (``torch.profiler``);
 * ``port_torch_weights`` the reference's ``ours.pth.tar`` as a checkpoint
                         of the port.
 

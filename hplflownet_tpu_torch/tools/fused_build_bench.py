@@ -21,8 +21,8 @@ that each mode's values bracket the others'.  Then, per mode, ``build_ops`` coun
 operators one ``build_pyramid`` of the pair dispatches (views excluded;
 the forward's tables, and with the adjoint plans as a step builds them),
 which the host pays for one by one, and ``torch.profiler`` counts the
-device kernels per forward and per step (as ``tools.op_profile`` counts
-them; 0 on the CPU, which runs no kernel), after the timings, since
+device kernels per forward and per step (``profile_forward._trace``;
+0 on the CPU, which runs no kernel), after the timings, since
 tracing slows the host for the rest of the process.  The variable is
 restored afterwards.
 """

@@ -10,11 +10,13 @@ device here, on the main thread.
 Two JAX-only pieces differ: the port's kernels are window-free, so an
 evaluation batch is never re-run in exact mode (a lattice capacity
 overflow is still counted and logged), and ``profile_dir`` writes a
-``torch.profiler`` Chrome trace of steps [2, 7) of the first epoch.
+``torch.profiler`` Chrome trace of steps [2, 7) of the first epoch, with
+the program's spans on (``utils.profiling.tracing``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import os.path as osp
 import pickle
@@ -30,7 +32,7 @@ from ..models import MODELS
 from ..models.init import reinit_params
 from ..pipeline import make_lattice_spec
 from ..utils.logging import AverageMeter, Logger
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, tracing
 from .checkpoint import CheckpointIO
 from .geometry2d import get_batch_2d_flow
 from .metrics import evaluate_2d, evaluate_3d
@@ -420,22 +422,25 @@ def run(args):
             "state": state}
 
 
-def _start_profile(dev: torch.device):
+def _start_profile(dev: torch.device) -> contextlib.ExitStack:
+    """A running trace, with the program's spans on (``tracing()``): the
+    layers, the build's scales and the model's modules show in it."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
+    window = contextlib.ExitStack()
+    window.enter_context(tracing())
+    window.prof = window.enter_context(profile(activities=activities))
+    return window
 
 
-def _stop_profile(prof, profile_dir, logger):
+def _stop_profile(window, profile_dir, logger):
     """Stop a running trace and write it; -> None (no trace running)."""
-    if prof is not None:
-        prof.stop()
+    if window is not None:
+        window.close()
         os.makedirs(profile_dir, exist_ok=True)
         path = osp.join(profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
+        window.prof.export_chrome_trace(path)
         logger.log(f"profile trace written to {path}")
     return None

@@ -29,6 +29,7 @@ from torch.func import functional_call
 from ..device import resolve_device, scalar
 from ..lattice.build import LatticeSpec, build_pyramid
 from ..models.losses import epe3d_loss
+from ..utils.profiling import span
 
 __all__ = ["AdamState", "TrainState", "create_train_state",
            "set_learning_rate", "adam_update", "loss_and_grad",
@@ -167,8 +168,9 @@ def loss_and_grad(model, spec: LatticeSpec, params: Mapping, batch: Mapping):
     batch = _batch_to(batch, _param_device(model))
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss, _, overflow = _batched_loss(model, spec, leaves, batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                materialize_grads=True)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
     return loss.detach(), overflow, dict(zip(leaves, grads))
 
 
@@ -182,6 +184,9 @@ def make_train_step(model, spec: LatticeSpec, learning_rate: float = 1e-4,
     and step count keep their old values) when the pyramid reports any
     overflow; "keep" applies it regardless.  The model's parameters must be
     on ``device``, the CUDA card unless the caller passes another.
+    Inside ``utils.profiling.tracing()`` a step marks ``train.backward``
+    (``torch.autograd.grad``) and ``train.adam`` (the update and the
+    overflow select) beside the build's and the model's spans.
     """
     if on_overflow not in ("keep", "skip"):
         raise ValueError(f"on_overflow must be 'keep' or 'skip', got {on_overflow!r}")
@@ -196,11 +201,12 @@ def make_train_step(model, spec: LatticeSpec, learning_rate: float = 1e-4,
 
     def with_overflow(state: TrainState, batch):
         loss, overflow, grads = loss_and_grad(model, spec, state.params, batch)
-        keep = (overflow == 0) if on_overflow == "skip" else None
-        params, opt = adam_update(grads, state.opt_state, state.params, keep)
-        step = state.step + 1
-        if keep is not None:
-            step = torch.where(keep, step, state.step)
+        with span("train.adam"):
+            keep = (overflow == 0) if on_overflow == "skip" else None
+            params, opt = adam_update(grads, state.opt_state, state.params, keep)
+            step = state.step + 1
+            if keep is not None:
+                step = torch.where(keep, step, state.step)
         return TrainState(params=params, opt_state=opt, step=step), loss, overflow
 
     def train_step(state: TrainState, batch):

@@ -1,5 +1,5 @@
-"""chip_smoke.py's main path, large, native, lattice and op_profile phases,
-rehearsed on the CPU.
+"""chip_smoke.py's main path, large, native and lattice phases, rehearsed
+on the CPU, and the order of the phases.
 
 At a small size (the flagship at 128 and 192 points in the large phase,
 128 points elsewhere, one rep), with the plain versions, so that a chip
@@ -7,8 +7,7 @@ run does not fail on a Python error: phase 5's forward, large_cloud_bench's
 rows and the per-call check, the host builder against the device builder,
 the two gloo worker interpreters of the lattice-sharded forward against
 the unsharded one (each rank's kernel calls replayed against their plain
-versions) and the gloo rank at world size 1 bit for bit,
-op_profile's forward and step.
+versions) and the gloo rank at world size 1 bit for bit.
 Launch counts stay 0 on the CPU, and kernel 1's rows are checked on a card
 only.
 """
@@ -29,7 +28,6 @@ def small_cpu_smoke(monkeypatch):
                         [1024, 2048, 2048, 1280, 512, 256, 128])
     monkeypatch.setattr(chip_smoke, "LARGE_SIZES", (128, 192))
     monkeypatch.setattr(chip_smoke, "LARGE_REPS", 1)
-    monkeypatch.setattr(chip_smoke, "OP_PROFILE_REPS", 1)
     yield chip_smoke
     torch.set_num_threads(n)
 
@@ -71,12 +69,14 @@ def test_lattice_phase(small_cpu_smoke):
 
 
 def test_op_profile_phase_and_the_phase_order(small_cpu_smoke):
+    """The profiled phases come after the timed ones; ``tools.op_profile``
+    and its phase are gone (the program's spans and the benchmark's
+    ``breakdown`` replace them)."""
     import inspect
-    results = {}
-    small_cpu_smoke.phase_op_profile(results)
-    assert set(results["op_profile"]) == {"pair", "step"}
+    assert not hasattr(small_cpu_smoke, "phase_op_profile")
     src = inspect.getsource(chip_smoke.main)
+    assert '("op_profile"' not in src
     order = [src.index(f'("{name}"') for name in
              ("bench", "synthetic", "large", "native", "dp", "lattice",
-              "op_profile", "plans")]
+              "plans", "fused_build")]
     assert order == sorted(order)

@@ -54,8 +54,9 @@ def test_port_and_chip_smoke_import_without_jax():
     r = _run(["-c", _REFUSING_IMPORTS], ROOT)
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[1])
-    # every subpackage and module was walked, the later slices' too
-    assert n >= 80, r.stdout
+    # every subpackage and module was walked, the later slices' too (79
+    # since tools.op_profile went)
+    assert n >= 79, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
                 "models.hplflownet_shallow", "data", "data.io", "data.transforms",
                 "data.datasets", "data.loader", "train.metrics",
@@ -75,7 +76,7 @@ def test_port_and_chip_smoke_import_without_jax():
                 "ops.shard", "parallel.lattice_parallel", "native",
                 "native.bindings", "native.check", "native.__main__",
                 "tools.large_cloud_bench", "tools.measure_capacities",
-                "tools.pyramid_bench", "tools.op_profile",
+                "tools.pyramid_bench",
                 "tools.port_torch_weights", "tools.fused_build_bench"):
         assert f"hplflownet_tpu_torch.{mod}" in r.stdout.split(), mod
 

@@ -3,9 +3,7 @@
 * ``large_cloud_bench --device cpu --sizes 256`` on the shallow model:
   zero on all four overflow counters, a finite flow, the measured
   capacities; and the tool fails when a capacity overflows.
-* ``pyramid_bench`` (every stage at every scale timed) and ``op_profile
-  --device cpu`` (forward and ``--train``: the top operators, families and
-  groups of one call).
+* ``pyramid_bench`` (every stage at every scale timed).
 * ``measure_capacities`` on the ``fake_data`` FT3D-layout directory of
   tests/test_driver.py equals ``train.driver.measure_capacities_from_loader``
   on the same validation loader.
@@ -32,8 +30,7 @@ from hplflownet_tpu.pipeline import make_lattice_spec as jax_spec
 from hplflownet_tpu_torch.models import HPLFlowNetShallow
 from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
 from hplflownet_tpu_torch.tools import (large_cloud_bench, measure_capacities,
-                                        op_profile, port_torch_weights,
-                                        pyramid_bench)
+                                        port_torch_weights, pyramid_bench)
 from hplflownet_tpu_torch.tools.timing import SFM5
 from hplflownet_tpu_torch.train.checkpoint import CheckpointIO
 from hplflownet_tpu_torch.train.driver import measure_capacities_from_loader
@@ -92,25 +89,6 @@ def test_pyramid_bench_times_every_stage():
     assert all(v > 0 for v in res["ms"].values())
     assert res["stage_ms"]["build"] == pytest.approx(
         sum(res["ms"][f"build_s{i}"] for i in range(n)))
-
-
-@pytest.mark.parametrize("train", [False, True], ids=["forward", "train"])
-def test_op_profile_on_the_cpu(train):
-    res = op_profile.run("cpu", train=train, arch=SHALLOW, num_points=256,
-                         reps=1, top=10)
-    unit = "step" if train else "pair"
-    assert res["busy_ms_per_" + unit] > 0 and res["kernels_per_" + unit] > 0
-    assert 0 < len(res["top"]) <= 10 and len(res["families"]) <= 10
-    assert res["top"][0]["ms"] >= res["top"][-1]["ms"]
-    assert sum(g["share"] for g in res["groups"]) == pytest.approx(1.0)
-    assert "host time" in res["clock"]
-    if train:
-        assert any(r["name"] == "aten::bmm" for r in res["top"])
-    assert op_profile.family("void k<float, 4>(int)") == "k"
-    assert op_profile.family("void (anonymous namespace)::stencil_kernel<128, "
-                             "float>((anonymous namespace)::Args)") == \
-        "(anonymous namespace)::stencil_kernel"
-    assert op_profile.family("aten::copy_") == "aten::copy"
 
 
 @pytest.fixture(scope="module")
