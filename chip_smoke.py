@@ -32,30 +32,38 @@ Phases, each printing a line with its elapsed seconds:
             bit against ``rank_reduce`` where the stream is a rank-mode
             plan); nvidia-smi samples SM clock, power and temperature
             meanwhile;
-4. reference  the float32 forward through the kernels on a 64-point pair
+4. dense    ``dense_gemm`` (the dense layers' GEMM with its epilogue) at
+            the main path's widest shapes (DENSE_CASES: the head's conv2
+            at 98304 rows, bcn1_'s pointwise conv at 90752, a
+            correlation's corr1 at h1 x 15 = 314880, the flow head's
+            conv4) against its plain version: max error, a rerun bit for
+            bit, device ms (a replayed CUDA graph), ms through the
+            wrapper, the bound, the plain version's ms and
+            ``torch.matmul`` on the bf16 operands;
+5. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
             tests/data/torch_port_ref_n64.npz, and the float32 train step's
             loss and gradients on the same pair against JAX's, frozen in
             tests/data/torch_port_train_ref_n64.npz;
-5. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
+6. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
             width (7 scales, bf16 compute): the launch counts of the
             forward's kernels and its stencil plans (and the CUDA kernels
             one pair's plans launch), the flow's shape and finiteness, zero
             overflow, the same forward with the plain versions forced, and
             pairs/s;
-6. train    the flagship train step (``train.step.make_train_step``: the
+7. train    the flagship train step (``train.step.make_train_step``: the
             8192-point pair, batch 1, bf16, Adam at lr 1e-4, overflow skip):
             the launch counts of all four kernels in one step, two gradient
             evaluations bit for bit, the gradients against the same step
             with the plain versions forced (in bf16, and in float32 on a
             float32 copy of the model), and ms/step over timed steps;
-7. fused    the same forward and train step under ``HPL_RANK_FUSED=1``
+8. fused    the same forward and train step under ``HPL_RANK_FUSED=1``
             (the fused rank-mode reduction, ``blocked_rank_reduce``): its
             launch counts per forward and per step (``rank_reduce`` none),
             the flow and gradients against the default route bit for bit,
             ms/pair and ms/step of both routes timed in turns; the
             environment is restored afterwards;
-8. shallow  ``HPLFlowNetShallow`` at full width (5 scales, SFM5, bf16,
+9. shallow  ``HPLFlowNetShallow`` at full width (5 scales, SFM5, bf16,
             the 8192-point pair, capacities SHALLOW_CAPACITIES): a forward
             and a train step with the launch counts of kernels 1-4 and zero
             overflow; every kernel call of the step against its plain
@@ -65,7 +73,7 @@ Phases, each printing a line with its elapsed seconds:
             bf16 step is, as in phase 6); pairs/s and ms/step; and the
             float32 64-point pair against the frozen JAX reference
             tests/data/torch_port_shallow_ref_n64.npz (phase 4's limits);
-9. driver   ``train.driver.run`` on a synthetic FlyingThings3D-layout
+10. driver   ``train.driver.run`` on a synthetic FlyingThings3D-layout
             directory (4 train and 3 val frames of 10240 points): the
             flagship trained one epoch (bf16, batch 2, capacities measured
             on the card), every step free of overflow, a finite loss, a
@@ -73,29 +81,29 @@ Phases, each printing a line with its elapsed seconds:
             evaluations from it with six finite metrics, bit-identical;
             train and evaluation pairs/s and the seconds from ``run`` to
             its first step, with the kernels' launches in each;
-10. tools   the op microbench and the two labs
+11. tools   the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
             counts of ``row_take`` and ``rank_partial`` in them; then the
             lattice build's stages per scale (``tools.pyramid_bench``);
-11. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
+12. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
             (pairs/s, train ms/step, launches, the card), kernels 1-4
             launched in its step;
-12. synthetic  ``tools.train_synthetic`` (the shallow model, 1024 points, 8
+13. synthetic  ``tools.train_synthetic`` (the shallow model, 1024 points, 8
             steps, ``--save-params``), ``tools.eval_synthetic`` on that
             pickle through the driver with the scene dumps, and
             ``data.visualization``'s CLI on them: six finite metrics, zero
             overflow, the .ply and .html files, the rates;
-13. large   ``tools.large_cloud_bench`` at 32768 and 98304 points on the
+14. large   ``tools.large_cloud_bench`` at 32768 and 98304 points on the
             flagship (bf16, capacities measured on seeds 0-2 with slack
             1.25): zero on all four overflow counters, ms/pair, peak MiB,
             launches of kernels 1 and 2; every kernel call of one 98304-point
             forward against its plain version on its inputs (CALL_TOL); the
             32768-point flow against the forward with the plain versions
             forced (phase 5's bound);
-14. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
+15. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
             the device builder on the 8192-point pair at scale 1.0: ids,
             unique keys, neighbour and correlation tables equal; host ms;
-15. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
+16. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
             on the one card, fresh interpreters started by
             ``tools.dryrun_multiprocess``, take one step of the flagship
             (float32, 8192 points, global batch 2, the second sample's
@@ -106,7 +114,7 @@ Phases, each printing a line with its elapsed seconds:
             world size 1, bit for bit against the single-process step on
             one sample; kernels 1-4 launched in every rank, the step's ms
             (after the phases it could slow: it starts NCCL in this process);
-16. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
+17. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
             gloo ranks on the one card (fresh interpreters) run the flagship
             forward (bf16, 8192 points) with the probes split over the taps
             and the blur / correlation vertices over the ranks: the flow
@@ -118,9 +126,9 @@ Phases, each printing a line with its elapsed seconds:
             ms/pair sharded and unsharded on the host clock (two ranks
             share one card: no scaling figure); then one NCCL rank at
             world size 1, bit for bit;
-17. plans   the CUDA kernels that one pair's stencil plans launch
+18. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; tracing slows the host afterwards);
-18. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
+19. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
             sort and probed in one join): every table of the flagship and
             the shallow model's pyramids for the 8192-point pair under "1"
             and "3584" against "0", the flagship flow and one train step's
@@ -155,6 +163,12 @@ SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
         [0.0625, 1, 1, 1]]
 CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
 NUM_POINTS = 8192
+# what a forward launches: kernels 1 and 2 and the dense layers' kernel;
+# the flagship forward's dense products: conv1 3 x 2 clouds, the encoder's
+# pointwise convs 7 x 2, the decoder's 7, the correlations' 3 x 5, the
+# head's 3
+FORWARD_KERNELS = ("stencil_gather_matmul", "rank_reduce", "dense_gemm")
+FLAGSHIP_DENSE = 45
 REF_NPZ = os.path.join("tests", "data", "torch_port_ref_n64.npz")
 TRAIN_REF_NPZ = os.path.join("tests", "data", "torch_port_train_ref_n64.npz")
 # the shallow model: tools/train_synthetic.py's 5-scale map; capacities of
@@ -602,6 +616,64 @@ def phase_kernels(results):
             f"{sum(r['launches'] * r['device_ms'] for r in rows):.4f} ms "
             f"device, {sum(r['launches'] * r['bound_ms'] for r in rows):.4f} "
             f"ms bound")
+
+
+# the dense layers' kernel at the main path's widest shapes (98304 points:
+# capacities [90752, 72448, 20992, ...]): name, M, K, N, act_slope, out dtype
+DENSE_CASES = (("conv2 head", 98304, 1024, 1024, 0.1, "bfloat16"),
+               ("bcn1_ conv1", 90752, 1024, 1024, None, "bfloat16"),
+               ("corr1 h1 x 15", 20992 * 15, 32, 32, 0.1, "bfloat16"),
+               ("conv4 head", 98304, 512, 3, None, "float32"),
+               ("conv1.0", 98304, 3, 32, 0.1, "bfloat16"))
+
+
+def phase_dense(results):
+    """``dense_gemm`` (csrc/dense_gemm.cu) at DENSE_CASES against its plain
+    version: max error, a rerun bit for bit, kernel ms (host clock through
+    the wrapper) and device ms (a replayed CUDA graph), the bound, the plain
+    version's ms and ``torch.matmul`` on the bf16 operands (the library
+    yardstick, float32 products summed by cuBLAS, no epilogue)."""
+    import torch
+    from hplflownet_tpu_torch.kernels.dense import dense_gemm, dense_gemm_plain
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = []
+    for name, m, k, n, slope, out_name in DENSE_CASES:
+        out_dt = getattr(torch, out_name)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
+        b = torch.randn(n, generator=gen, device=dev) * 0.1
+
+        def run():
+            return dense_gemm(x, w, b, slope, out_dt)
+        got, again = run(), run()
+        want = dense_gemm_plain(x, w, b, slope, out_dt)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"dense_gemm {name}: rerun differs")
+        # an ulp of the bf16 output, or the float32 sums' order
+        tol = CALL_TOL["bf16" if out_dt == torch.bfloat16 else "f32"]
+        err = max_err(got, want, tol * float(want.float().abs().max()), 0.0,
+                      f"dense_gemm {name}")
+        wb = w.to(torch.bfloat16)
+        nbytes = 2 * (m * k + k * n) + 4 * n + m * n * got.element_size()
+        bms, by = bound_ms(nbytes, 2.0 * m * k * n, "bfloat16")
+        row = dict(case=name, dtype="bfloat16", shape=f"{m} x {k} -> {n}",
+                   out=out_name, max_abs_err=err,
+                   ms=cuda_ms(run), device_ms=device_ms(run), bound_ms=bms,
+                   bound_by=by, plain_ms=cuda_ms(
+                       lambda: dense_gemm_plain(x, w, b, slope, out_dt), reps=3),
+                   library_ms=cuda_ms(lambda: torch.matmul(x, wb)),
+                   library_device_ms=device_ms(lambda: torch.matmul(x, wb)))
+        rows.append(row)
+        log(f"dense_gemm {name} ({row['shape']}, {out_name} out): device "
+            f"{row['device_ms']:.4f} ms ({row['ms']:.4f} through the wrapper), "
+            f"bound {bms:.4f} ms by {by} ({100 * bms / row['device_ms']:.1f}%), "
+            f"plain {row['plain_ms']:.4f}, torch.matmul bf16 "
+            f"{row['library_device_ms']:.4f} ms; max|err| {err:.3e}")
+    results["dense"] = rows
+    return rows
 
 
 def _index_add_ms(sv, ids, n_out, dev) -> tuple:
@@ -1320,8 +1392,6 @@ def phase_main_path(results):
     import numpy as np
     import torch
     from hplflownet_tpu_torch.kernels import plain_kernels
-    from hplflownet_tpu_torch.kernels.splat import rank_reduce
-    from hplflownet_tpu_torch.kernels.stencil import stencil_gather_matmul
     from hplflownet_tpu_torch.kernels.stencil_plan import make_stencil_plan
     from hplflownet_tpu_torch.lattice import build_pyramid
     from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
@@ -1335,17 +1405,18 @@ def phase_main_path(results):
     model = HPLFlowNet(SFM7, compute_dtype="bfloat16", device=DEVICE)
     params_from_jax(seeded_jax_params(model, 0), model)
 
-    wrappers = {"stencil_gather_matmul": stencil_gather_matmul,
-                "rank_reduce": rank_reduce}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = {k: w for k, w in _kernel_wrappers().items()
+                if k in FORWARD_KERNELS}
     make_stencil_plan.builds = 0
-    flow = flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
-    sync()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    flow, launches = _counted(wrappers, lambda: flow_forward(
+        model, spec, pc1, pc2, adjoint_plans=False))
     builds = make_stencil_plan.builds
     log(f"main path launches: {launches}; stencil plans built: {builds}")
     _require_launches("the main path", launches)
+    if DEVICE == "cuda" and launches["dense_gemm"] != FLAGSHIP_DENSE:
+        raise AssertionError(f"the main path: {launches['dense_gemm']} "
+                             f"dense_gemm launches, not one per dense product "
+                             f"({FLAGSHIP_DENSE})")
     results["forward_launches"] = launches
 
     out = flow.float().cpu().numpy()
@@ -1687,7 +1758,7 @@ def phase_shallow(results):
         wrappers, lambda: step.with_overflow(state, batch))
     log(f"shallow launches: forward {fwd_launches}; train step {step_launches}")
     _require_launches("shallow forward", {k: fwd_launches[k] for k in
-                                          ("stencil_gather_matmul", "rank_reduce")})
+                                          FORWARD_KERNELS})
     _require_launches("shallow train step", step_launches)
     with torch.inference_mode():
         scales = build_pyramid(spec, batch["pc1"][0], batch["pc2"][0])
@@ -1895,8 +1966,7 @@ def phase_driver(results):
             wrappers, lambda: (run(postprocess(Config(ev))),
                                run(postprocess(Config(ev)))))
         _require_launches("driver evaluation", {k: eval_launches[k] for k in
-                                                ("stencil_gather_matmul",
-                                                 "rank_reduce")})
+                                                FORWARD_KERNELS})
         bad = [k for k in metrics if not np.isfinite(first[k])]
         differ = [k for k in metrics if first[k] != second[k]]
         if bad or differ or first["overflowed_batches"]:
@@ -2090,7 +2160,7 @@ def phase_bench(results):
     print(json.dumps(res), flush=True)
     _require_launches("bench step", res["launches"]["step"])
     _require_launches("bench forward", {k: res["launches"]["forward"][k] for k in
-                                        ("stencil_gather_matmul", "rank_reduce")})
+                                        FORWARD_KERNELS})
     results["bench"] = res
     log(f"bench: {res['value']:.2f} pairs/s ({res['forward_ms']:.2f} ms/pair), "
         f"train {res['train_step_ms']:.2f} ms/step, median of {res['reps']}; "
@@ -2130,7 +2200,7 @@ def phase_synthetic(results):
                    if not os.path.isfile(os.path.join(ply, f"{i:04d}_{t}"))]
     _require_launches("train_synthetic", train_launches)
     _require_launches("eval_synthetic", {k: eval_launches[k] for k in
-                                         ("stencil_gather_matmul", "rank_reduce")})
+                                         FORWARD_KERNELS})
     bad = [k for k in metrics if not np.isfinite(ev[k])]
     if bad or missing or scenes != pairs or trained["overflow_total"] \
             or ev["overflowed_batches"] or not np.isfinite(trained["final_val_epe3d"]):
@@ -2257,8 +2327,7 @@ def phase_lattice(results):
                  for i in range(2)]
     for i, launches in enumerate(res["launches"]):            # a forward
         _require_launches(f"lattice rank {i}", {k: launches[k] for k in
-                                                ("stencil_gather_matmul",
-                                                 "rank_reduce")})
+                                                FORWARD_KERNELS})
 
     model, spec, batch = dryrun.make_case(case, DEVICE)
     pc1, pc2 = (torch.from_numpy(batch[k][0]).to(DEVICE) for k in ("pc1", "pc2"))
@@ -2291,7 +2360,7 @@ def phase_lattice(results):
                                  f"{rows} rows in {n_calls}")
     # each rank's kernel calls were replayed against their plain versions
     for i, per_call in enumerate(res["calls"]):
-        missing = [k for k in ("stencil_gather_matmul", "rank_reduce")
+        missing = [k for k in FORWARD_KERNELS
                    if per_call.get(k, {}).get("calls", 0) <= 0]
         if missing:
             raise AssertionError(f"lattice rank {i}: no call of {missing} "
@@ -2455,7 +2524,7 @@ def phase_fused_build(results):
     mode = FUSED_BUILD_MODES[0]
     _require_launches(f"forward, HPL_FUSED_BUILD={mode}",
                       {k: launches[f"forward_{mode}"][k]
-                       for k in ("stencil_gather_matmul", "rank_reduce")})
+                       for k in FORWARD_KERNELS})
     _require_launches(f"train step, HPL_FUSED_BUILD={mode}", launches[f"step_{mode}"])
     _same(f"flagship flow, loss and gradients, HPL_FUSED_BUILD={mode} vs 0",
           out[mode], out["0"])
@@ -2536,6 +2605,8 @@ def kernels_line(results) -> dict:
          tools, {}),
         ("rank_partial", "partial", "lab bo=8", "tools/rank_partial_lab.py:110",
          tools, {}),
+        ("dense_gemm", "dense", "conv2", "none (XLA's dot, "
+         "hplflownet_tpu/ops/bcl.py:416)", train, fwd),
     ]
     out = []
     for name, kind, case, replaces, launches, launches_fwd in entries:
@@ -2632,6 +2703,7 @@ def main(argv=None) -> int:
 
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: sampled(phase_kernels)),
+              ("dense", lambda: phase_dense(results)),
               ("reference", phase_reference),
               ("main path", lambda: phase_main_path(results)),
               ("train", lambda: phase_train(results)),

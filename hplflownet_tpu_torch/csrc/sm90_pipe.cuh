@@ -1,4 +1,4 @@
-// Building blocks of the stencil kernels on Hopper (sm_90a): zero-filling
+// Building blocks of the wgmma kernels on Hopper (sm_90a): zero-filling
 // cp.async copies into 128-byte-swizzled shared-memory tiles, the wgmma
 // shared-memory descriptors of those tiles, and the warpgroup MMA itself.
 //
@@ -15,8 +15,12 @@
 //   K rows x 128 bytes with the same swizzle, atom a at a * K * 128.
 //   Descriptor (transpose bit set): LBO = the atom stride, SBO = 1024
 //   bytes (8 K-rows); the k16 step s starts 16 * 128 * s bytes in.
+// * K-major B (the dense layers' transposed weight): N rows x 64 input
+//   channels, laid out as A; the TMA's 128-byte swizzle writes the same
+//   layout.  wgmma_k16 takes N = 8, 32, 64 or 128.
 //
-// Included by stencil_gather_matmul.cu and stencil_dkernel.cu.
+// Included by stencil_gather_matmul.cu, stencil_dkernel.cu and
+// dense_gemm.cu.
 
 #pragma once
 
@@ -164,15 +168,55 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// D (64 x 8, f32, registers) += A (smem desc) * B (smem desc), k16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, "
+      "%4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 32, f32, registers) += A (smem desc) * B (smem desc), k16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // One k16 step: D (64 x N) += A * B, N = 2 R.  TA / TB: 0 for a
 // K-major operand, 1 for an MN-major one (the transpose bits).
 template <int TA, int TB, int R>
 __device__ __forceinline__ void wgmma_k16(float (&d)[R], uint64_t da,
                                           uint64_t db) {
-  if constexpr (R == 32) {
+  if constexpr (R == 4) {
+    wgmma_n8<TA, TB>(d, da, db);
+  } else if constexpr (R == 16) {
+    wgmma_n32<TA, TB>(d, da, db);
+  } else if constexpr (R == 32) {
     wgmma_n64<TA, TB>(d, da, db);
   } else {
-    static_assert(R == 64, "N is 64 or 128");
+    static_assert(R == 64, "N is 8, 32, 64 or 128");
     wgmma_n128<TA, TB>(d, da, db);
   }
 }

@@ -17,6 +17,10 @@ Every kernel replaces one Pallas TPU kernel of ``hplflownet_tpu``:
 * ``rank_partial.rank_partial`` (csrc/rank_partial.cu) replaces the
   rank-partial lab's ``variant`` (``tools/rank_partial_lab.py``).
 
+``dense.dense_gemm`` (csrc/dense_gemm.cu) replaces none: the dense layers'
+product, with its bias, activation and cast, which the JAX package leaves
+to XLA's ``dot``.
+
 The two stencil kernels walk a stencil plan per neighbour table
 (``stencil_plan.py``: the row order and per-tap vertex lists, plain
 PyTorch), which the model makes once per pair.
@@ -74,19 +78,21 @@ def backward_like_forward(backward):
 
 
 def main_path_wrappers() -> dict:
-    """The wrappers of kernels 1-4, the ones the forward and the train step
-    launch, by name."""
+    """The wrappers of kernels 1-4 and the dense layers' kernel, the ones
+    the forward and the train step launch, by name."""
+    from .dense import dense_gemm
     from .dkernel import stencil_dkernel
     from .splat import rank_reduce
     from .stencil import stencil_gather_matmul
     from .tap_tables import stencil_tap_tables_sum
     return {"stencil_gather_matmul": stencil_gather_matmul,
             "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
-            "stencil_tap_tables_sum": stencil_tap_tables_sum}
+            "stencil_tap_tables_sum": stencil_tap_tables_sum,
+            "dense_gemm": dense_gemm}
 
 
 def count_launches(fn, wrappers: dict | None = None):
-    """``fn()`` with the wrappers' launch counts (kernels 1-4 by default)
+    """``fn()`` with the wrappers' launch counts (the main path's by default)
     set to 0 just before and read just after -> (result, {name: count})."""
     wrappers = main_path_wrappers() if wrappers is None else wrappers
     for w in wrappers.values():

@@ -10,7 +10,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.bcl import activation, dense
+from ..ops.bcl import dense, slope_of
 
 __all__ = ["PointMLP"]
 
@@ -42,8 +42,9 @@ class PointMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         for i in range(len(self.widths)):
-            x = dense(x, getattr(self, f"dense{i}_kernel"), dt) + getattr(
-                self, f"dense{i}_bias")
-            if i < len(self.widths) - 1 or self.last_act:
-                x = activation(x, self.use_leaky).to(dt)
+            on = i < len(self.widths) - 1 or self.last_act
+            x = dense(x, getattr(self, f"dense{i}_kernel"),
+                      getattr(self, f"dense{i}_bias"),
+                      slope_of(self.use_leaky) if on else None,
+                      dt if on else torch.float32, dt)
         return x

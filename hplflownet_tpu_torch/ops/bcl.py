@@ -20,6 +20,10 @@ gather or a deterministic kernel, never ``index_add_`` / ``scatter_add_``.
 * ``slice_to_points``: each point's d+1 vertices, barycentric-weighted;
   absent vertices (id -1) get weight zero.  Its adjoint is an unnormalised
   splat of the cotangent through the same plan (``rank_reduce``).
+* ``dense``: a dense layer (the BCL's pointwise convs, the point MLPs, the
+  correlation's MLP and displacement filter): one ``dense_gemm`` launch with
+  the bias, activation and output cast in its epilogue; its backward is the
+  float32 one autograd formed for the composition it replaces.
 * ``BilateralConv``: the module, with the flax parameter names and layouts
   (``conv0_kernel`` is ``(F, C_in, C_out)``).
 * ``vertex_sharding``: within it, ``blur`` (and the correlation BCL,
@@ -44,6 +48,7 @@ from torch import nn
 
 from ..device import device_constant, scalar
 from ..kernels import backward_like_forward, plain_forced
+from ..kernels.dense import dense_gemm, gemm_weight, uses_kernel
 from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
@@ -51,7 +56,7 @@ from .segment import ReducePlan, _wr_forward, weighted_reduce
 from .shard import axis_shard, gather_parts, local_part
 
 __all__ = ["splat", "blur", "slice_to_points", "BilateralConv",
-           "LEAKY_RATE", "NORM_EPS", "activation", "dense",
+           "LEAKY_RATE", "NORM_EPS", "activation", "slope_of", "dense",
            "vertex_sharding", "vertex_shard", "local_columns"]
 
 # Call-time hook for splitting the vertex axis over a mesh axis (see
@@ -106,16 +111,6 @@ def activation(x: torch.Tensor, use_leaky: bool) -> torch.Tensor:
     return torch.where(x > 0, x, 0.0)
 
 
-def dense(x: torch.Tensor, k: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """``x @ k`` with both rounded to ``dt`` and a float32 result.
-
-    The products of bf16 values are exact in float32, so a float32 matmul
-    of the rounded operands is "bf16 inputs, float32 accumulation".
-    """
-    f32 = torch.float32
-    return x.to(dt).to(f32) @ k.to(dt).to(f32)
-
-
 def splat(features: torch.Tensor,     # (N, C)
           barycentric: torch.Tensor,  # (N, d1)
           plan: ReducePlan,
@@ -144,6 +139,75 @@ def _act_grad(act_slope, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if act_slope == 0.0:
         return torch.where(y > 0, g, 0.0)
     return torch.where(y >= 0, g, scalar(act_slope, g.device, g.dtype) * g)
+
+
+def slope_of(use_leaky: bool) -> float:
+    """The ``act_slope`` of :func:`activation`'s rule: the leaky slope, or 0
+    for ReLU."""
+    return LEAKY_RATE if use_leaky else 0.0
+
+
+class _Dense(torch.autograd.Function):
+    """A dense layer through ``dense_gemm`` (the JAX package's ``jnp.dot``
+    with ``preferred_element_type=float32``, then bias, activation and cast).
+
+    The backward is the mixed-precision one autograd formed for the
+    composition: float32 products of the float32 cotangent with the
+    operands rounded to ``dt``, the input and weight gradients rounded to
+    ``dt`` (and back to the input's and weight's dtypes), the bias gradient
+    summed in float32.  On the card the weight's rounded copy is the one the
+    forward's kernel read, kept.
+    """
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, act_slope, out_dtype, dt):
+        # the kernel's transposed, rounded weight, kept for the backward
+        wt = gemm_weight(kernel, dt) if uses_kernel(x) else None
+        y = dense_gemm(x, kernel, bias, act_slope, out_dtype, dt, wt=wt)
+        ctx.act_slope = act_slope
+        ctx.dt = dt
+        ctx.has_bias = bias is not None
+        ctx.kept_wt, ctx.kernel_dtype = wt is not None, kernel.dtype
+        ctx.save_for_backward(x, kernel if wt is None else wt, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        f32, dt = torch.float32, ctx.dt
+        gp = _act_grad(ctx.act_slope, y, g.to(f32))
+        d_x = d_kernel = d_bias = None
+        if ctx.needs_input_grad[0]:
+            # the weight rounded to dt, (K, N) in float32: from the kept
+            # W^T (its zero channels past K dropped) in one copy, or made
+            # here; the product sees the layout the composition gave it
+            w32 = (w[:, :x.shape[1]].t().to(
+                f32, memory_format=torch.contiguous_format) if ctx.kept_wt
+                else w.to(dt).to(f32))
+            d_x = gp.mm(w32.t()).to(dt).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            d_kernel = x.to(dt).to(f32).t().mm(gp).to(dt).to(ctx.kernel_dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            d_bias = gp.sum(dim=0)
+        return d_x, d_kernel, d_bias, None, None, None
+
+
+def dense(x: torch.Tensor,             # (M, K)
+          kernel: torch.Tensor,        # (K, N)
+          bias: torch.Tensor | None,   # (N,) f32
+          act_slope: float | None,
+          out_dtype: torch.dtype,
+          dt: torch.dtype) -> torch.Tensor:
+    """act(x @ kernel + bias) -> (M, N) in ``out_dtype``, both operands
+    rounded to ``dt``.
+
+    The products of bf16 values are exact in float32 and sum in float32
+    ("bf16 inputs, float32 accumulation"); the bias, the activation
+    (``act_slope`` as :func:`blur`'s: None linear, 0.0 ReLU, else leaky)
+    and the cast run in float32 on the result, in one kernel on the card
+    (``kernels.dense``).
+    """
+    return _Dense.apply(x, kernel, bias, act_slope, out_dtype, dt)
 
 
 class _Blur(torch.autograd.Function):
@@ -330,18 +394,17 @@ class BilateralConv(nn.Module):
         splatted_pad = splatted_pad.to(dt)
 
         if len(self.widths) > 1 or self.last_relu:
-            slope = LEAKY_RATE if self.use_leaky else 0.0
+            slope = slope_of(self.use_leaky)
         else:
             slope = None
         x = blur(splatted_pad, blur_neighbors, self.conv0_kernel.to(dt),
                  self.conv0_bias, slope, dt, self.tap_negation, blur_plan)
 
         for i in range(1, len(self.widths)):
-            x = (dense(x, getattr(self, f"conv{i}_kernel"), dt)
-                 + getattr(self, f"conv{i}_bias"))
-            if i < len(self.widths) - 1 or self.last_relu:
-                x = activation(x, self.use_leaky)
-            x = x.to(dt)
+            on = i < len(self.widths) - 1 or self.last_relu
+            x = dense(x, getattr(self, f"conv{i}_kernel"),
+                      getattr(self, f"conv{i}_bias"),
+                      slope_of(self.use_leaky) if on else None, dt, dt)
 
         if not self.do_slice:
             return x

@@ -43,7 +43,7 @@ from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
 from ..kernels.tap_tables import stencil_tap_tables_sum
 from .bcl import (_negation_index, activation, dense, local_columns,
-                  splat, vertex_shard)
+                  slope_of, splat, vertex_shard)
 from .shard import gather_parts
 from .segment import ReducePlan, apply_reduce_plan
 
@@ -301,21 +301,22 @@ class BilateralCorrelation(nn.Module):
         y = activation(a_self[:, None, :] + cross, self.use_leaky)  # (H1, F, W)
 
         h1, nf, _ = y.shape
+        slope = slope_of(self.use_leaky)
         for i in range(1, len(self.corr_widths)):
-            k = getattr(self, f"corr{i}_kernel")
-            y = dense(y.reshape(h1 * nf, -1), k, dt).reshape(h1, nf, -1)
-            y = activation(y + getattr(self, f"corr{i}_bias"), self.use_leaky)
+            # stored in the compute dtype: the next layer rounds it so first
+            y = dense(y.reshape(h1 * nf, -1), getattr(self, f"corr{i}_kernel"),
+                      getattr(self, f"corr{i}_bias"), slope, dt,
+                      dt).reshape(h1, nf, -1)
 
         # ---- displacement-filtering stage ----
-        x = (dense(y.reshape(h1, -1), self.blur0_kernel.reshape(
-            -1, self.widths[0]), dt) + self.blur0_bias)
-        if len(self.widths) > 1 or self.last_relu:
-            x = activation(x, self.use_leaky)
-        x = x.to(dt)
+        x = dense(y.reshape(h1, -1),
+                  self.blur0_kernel.reshape(-1, self.widths[0]),
+                  self.blur0_bias,
+                  slope if len(self.widths) > 1 or self.last_relu else None,
+                  dt, dt)
         for i in range(1, len(self.widths)):
-            x = dense(x, getattr(self, f"blur{i}_kernel"), dt) + getattr(
-                self, f"blur{i}_bias")
-            if i < len(self.widths) - 1 or self.last_relu:
-                x = activation(x, self.use_leaky)
-            x = x.to(dt)
+            on = i < len(self.widths) - 1 or self.last_relu
+            x = dense(x, getattr(self, f"blur{i}_kernel"),
+                      getattr(self, f"blur{i}_bias"), slope if on else None,
+                      dt, dt)
         return x if shard is None else gather_parts(x, h1_all, shard)

@@ -11,7 +11,7 @@ per step and the arguments of its first call in the step, so that a kernel
 can be timed on the inputs the step really gives it.
 
 :class:`recorded_calls` records every call the ops make to kernels 1-4
-with a copy of its output, and :func:`check_calls` runs each again with
+and the dense layers' kernel with a copy of its output, and :func:`check_calls` runs each again with
 the plain versions forced and holds the two to a limit.
 
 ``chip_smoke.py``, ``tools.kernel_ab`` and the lattice mode of
@@ -39,7 +39,8 @@ KERNELS = {"rank_reduce": "hplflownet_tpu_torch.ops.segment",
 SITES = {"stencil_gather_matmul": ("ops.bcl", "ops.corr"),
          "rank_reduce": ("ops.segment",),
          "stencil_dkernel": ("ops.bcl", "ops.corr"),
-         "stencil_tap_tables_sum": ("ops.corr",)}
+         "stencil_tap_tables_sum": ("ops.corr",),
+         "dense_gemm": ("ops.bcl",)}
 
 
 def shape_key(name: str, args: dict) -> dict:
@@ -92,8 +93,9 @@ def record(names=tuple(KERNELS)):
 
 
 class recorded_calls:
-    """Within the ``with``, every call the ops make to kernels 1-4 is
-    passed on and recorded as (name, args, kwargs, a copy of the output)."""
+    """Within the ``with``, every call the ops make to the main path's
+    kernels is passed on and recorded as (name, args, kwargs, a copy of the
+    output)."""
 
     def __enter__(self):
         import importlib

@@ -17,8 +17,10 @@ KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 KERNELS = ["stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
            "stencil_tap_tables_sum", "blocked_rank_reduce", "row_take",
-           "rank_partial"]
+           "rank_partial", "dense_gemm"]
 TRAIN_KERNELS = KERNELS[:4]
+# what a forward and a train step launch: kernels 1-4 and the dense layers'
+PATH_KERNELS = TRAIN_KERNELS + ["dense_gemm"]
 
 
 @pytest.fixture
@@ -36,6 +38,11 @@ def small_cpu_smoke(monkeypatch):
     # lattice.capacity.measured_default_capacities(128, SFM5)
     monkeypatch.setattr(chip_smoke, "SHALLOW_CAPACITIES", [768, 1024, 640, 256, 128])
     monkeypatch.setattr(chip_smoke, "DRIVER_FRAME_POINTS", 160)
+    monkeypatch.setattr(chip_smoke, "DENSE_CASES", (
+        ("conv2 head", 300, 64, 96, 0.1, "bfloat16"),
+        ("bcn1_ conv1", 200, 64, 64, None, "bfloat16"),
+        ("corr1 h1 x 15", 450, 32, 32, 0.1, "bfloat16"),
+        ("conv4 head", 300, 32, 3, None, "float32")))
     return chip_smoke
 
 
@@ -97,8 +104,15 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     assert [(t["kernel"], t["against"]) for t in results["rank_targets"][-4:]] == [
         ("rank_reduce", "0.017 ms"), ("rank_reduce", "blocked_rank_reduce"),
         ("rank_reduce", "bound"), ("stencil_tap_tables_sum", "bound")]
+    # the dense layers' kernel at its four cases, each timed three ways
+    rows = cs.phase_dense(results)
+    assert [r["case"] for r in rows] == [c[0] for c in cs.DENSE_CASES]
+    assert all(r["max_abs_err"] == 0 for r in rows)          # plain on the CPU
+    assert all(r["device_ms"] > 0 and r["library_device_ms"] > 0
+               and r["plain_ms"] > 0 and r["bound_ms"] > 0 for r in rows)
     cs.phase_reference()
-    results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)))
+    results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)),
+                               dense_gemm=45)
     results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
     results["fused_launches"] = {"blocked_rank_reduce": 25, "rank_reduce": 0}
     results["fused_forward_launches"] = {"blocked_rank_reduce": 18,
@@ -115,7 +129,8 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     for k in line["kernels"]:
         assert KEYS <= set(k)
         timed = k["name"] in ("rank_reduce", "stencil_tap_tables_sum",
-                              "blocked_rank_reduce", "row_take", "rank_partial")
+                              "blocked_rank_reduce", "row_take", "rank_partial",
+                              "dense_gemm")
         assert ("device_ms" in k) == timed
         assert ("library_device_ms" in k) == timed
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
@@ -132,7 +147,7 @@ def test_train_phase_runs_and_launches_nothing_on_the_cpu(small_cpu_smoke):
     their plain versions, so every launch count stays 0."""
     results = {}
     small_cpu_smoke.phase_train(results)
-    assert results["launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert results["launches"] == dict.fromkeys(PATH_KERNELS, 0)
     assert results["train_ms"] > 0
 
 
@@ -175,12 +190,12 @@ def test_shallow_and_driver_phases_run_on_the_cpu(small_cpu_smoke, one_torch_thr
     results = {}
     small_cpu_smoke.phase_shallow(results)
     sh = results["shallow"]
-    assert sh["step_launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert sh["step_launches"] == dict.fromkeys(PATH_KERNELS, 0)
     assert sh["ms_pair"] > 0 and sh["ms_step"] > 0
     assert [r["against"] for r in sh["reference"]["rows"]] == ["jax", "exact"]
     small_cpu_smoke.phase_driver(results)
     dr = results["driver"]
-    assert dr["train_launches"] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert dr["train_launches"] == dict.fromkeys(PATH_KERNELS, 0)
     assert dr["train_pairs_per_s"] > 0 and dr["train_first_step_s"] > 0
     assert len(dr["eval_pairs_per_s"]) == 2 and min(dr["eval_pairs_per_s"]) > 0
     assert set(dr["metrics"]) == {"epe3d", "acc3ds", "acc3dr", "outliers",

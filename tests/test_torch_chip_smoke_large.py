@@ -39,7 +39,10 @@ def test_large_and_native_phases(small_cpu_smoke):
     assert [r["points"] for r in large["sizes"]] == [128, 192]
     for r in large["sizes"]:
         assert not any(r["overflow"].values()) and r["ms_per_pair"] > 0
+        assert r["launches"] == dict.fromkeys(small_cpu_smoke.FORWARD_KERNELS, 0)
     assert large["calls"]["stencil_gather_matmul"]["calls"] > 0
+    # every dense product of the forward is replayed against its plain version
+    assert large["calls"]["dense_gemm"]["calls"] == small_cpu_smoke.FLAGSHIP_DENSE
     assert large["calls"]["rank_reduce"]["calls"] > 0
     assert large["plain"]["points"] == 128 and large["plain"]["max_rel"] == 0.0
     small_cpu_smoke.phase_native(results)
@@ -50,8 +53,10 @@ def test_large_and_native_phases(small_cpu_smoke):
 def test_main_path_phase(small_cpu_smoke):
     results = {}
     small_cpu_smoke.phase_main_path(results)
-    assert results["forward_launches"] == {"stencil_gather_matmul": 0,
-                                           "rank_reduce": 0}
+    # what the phase counts: kernels 1 and 2 and the dense layers' kernel
+    assert results["forward_launches"] == dict.fromkeys(
+        small_cpu_smoke.FORWARD_KERNELS, 0)
+    assert "dense_gemm" in results["forward_launches"]
     assert results["pairs_per_s"] > 0 and results["plain_pairs_per_s"] > 0
 
 

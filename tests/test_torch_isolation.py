@@ -55,8 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[1])
     # every subpackage and module was walked, the later slices' too (79
-    # since tools.op_profile went)
-    assert n >= 79, r.stdout
+    # since tools.op_profile went, 80 with kernels.dense)
+    assert n >= 80, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
                 "models.hplflownet_shallow", "data", "data.io", "data.transforms",
                 "data.datasets", "data.loader", "train.metrics",
@@ -64,6 +64,7 @@ def test_port_and_chip_smoke_import_without_jax():
                 "utils.config", "utils.logging", "utils.profiling", "main",
                 "kernels.dkernel", "kernels.tap_tables", "kernels.rank_fused",
                 "kernels.take", "kernels.rank_partial", "kernels.stencil_plan",
+                "kernels.dense",
                 "ops.dispatch",
                 "tools", "tools.timing", "tools.microbench", "tools.gather_lab",
                 "tools.rank_partial_lab", "tools.rank_cases", "tools.tap_cases",
