@@ -6,7 +6,8 @@ to float8 e4m3 (clamped to its +-448 range) and sums in float32.  It has
 the program's interface (``flowbench.entries.<entry>.Program``), so a
 session drives it through the same set-up, window and check; its numbers
 must come out over the cell's limits.  The benchmark's runs never use it:
-``flowbench/readings.py`` and the tests do.
+``flowbench/readings.py`` and the tests do.  An entry with no row in
+``CONTROLS`` brings its own, ``flowbench.entries.<entry>.CONTROL``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .entries import ByEntry
 from .reference import lattice, model
 from .reference.train import Trainer
 
@@ -64,4 +66,4 @@ class ControlTrain:
         return self.trainer.params
 
 
-CONTROLS = {"forward": ControlForward, "train": ControlTrain}
+CONTROLS = ByEntry("CONTROL", {"forward": ControlForward, "train": ControlTrain})

@@ -18,8 +18,9 @@ import torch
 
 from ..reference import lattice as ref_lattice
 from ..reference import model as ref_model
+from ..reference.model import init_params
 
-__all__ = ["Program", "Session"]
+__all__ = ["init_params", "Program", "Session"]
 
 
 class Program:

@@ -30,8 +30,9 @@ import torch
 from ..reference import lattice as ref_lattice
 from ..reference import model as ref_model
 from ..reference import train as ref_train
+from ..reference.model import init_params
 
-__all__ = ["Program", "Session", "compare", "gaps"]
+__all__ = ["init_params", "Program", "Session", "compare", "gaps"]
 
 
 class Program:

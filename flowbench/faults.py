@@ -12,14 +12,15 @@ them; the benchmark's runs never do.
 * ``stale_flow`` (forward): a request gets the previous request's flow;
 * ``half_cloud`` (forward): half of cloud 1's points are left out.
 
-One card, so no fault leaves out an exchange between cards.
+One card, so no fault leaves out an exchange between cards.  An entry with
+no row in ``FAULTS`` brings its own, ``flowbench.entries.<entry>.FAULTS``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .entries import forward, train
+from .entries import ByEntry, forward, train
 
 __all__ = ["FAULTS"]
 
@@ -68,6 +69,6 @@ class HalfCloud(forward.Program):
         return flow.cpu().numpy()
 
 
-FAULTS = {"train": {"unchanged": Unchanged, "half_batch": HalfBatch,
-                    "stale_loss": StaleLoss},
-          "forward": {"stale_flow": StaleFlow, "half_cloud": HalfCloud}}
+FAULTS = ByEntry("FAULTS", {
+    "train": {"unchanged": Unchanged, "half_batch": HalfBatch, "stale_loss": StaleLoss},
+    "forward": {"stale_flow": StaleFlow, "half_cloud": HalfCloud}})

@@ -4,7 +4,7 @@ The program marks its layers with ``torch.profiler.record_function``
 ranges and counts the lattice's fill, but only inside
 ``hplflownet_tpu_torch.utils.profiling.tracing()`` (PERF.md, section 3).
 :func:`layers` profiles ``PROFILED_CALLS`` more calls of a session, on pool
-pairs 0, 1, ..., under ``tracing()`` and ``torch.profiler`` (CPU and CUDA
+items 0, 1, ..., under ``tracing()`` and ``torch.profiler`` (CPU and CUDA
 activities, in memory), each call in its own ``flowbench.call<j>`` range.
 It runs once per session (memoised on it), from the ``span(session)`` of
 the per-layer metrics that read it, after the harness's own profiled
@@ -90,7 +90,7 @@ def _profile(session) -> dict | None:
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     n = PROFILED_CALLS[session.entry]
-    pool = len(session.pool.pc1)
+    pool = int(session.mix["pool"])
     with tracing() as counters, profile(activities=acts) as prof:
         sync()
         t0 = time.perf_counter()

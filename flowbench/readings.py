@@ -5,11 +5,12 @@
         [--requests 8] [--out file.jsonl]
 
 For each seed: the cell's set-up (weights, pool, program, warm-up), a
-short stretch at the cell's own load (``--requests`` requests of the
-forward; the training cell's check steps are its set-up), then the check
-against the reference, as a run makes it.  ``--control-seeds`` does the
-same with the control (``flowbench.control``) in the program's place, and
-``--fault-seeds`` with each fault of the entry (``flowbench.faults``)
+short stretch at the cell's own load (``--requests`` requests of a
+forward session; a training session's check steps are its set-up), then
+the check against the reference, as a run makes it.  ``--control-seeds``
+does the same with the control (``flowbench.control``, or the entry's own
+``CONTROL``) in the program's place, and ``--fault-seeds`` with each fault
+of the entry (``flowbench.faults``, or the entry's own ``FAULTS``)
 planted.  One JSON line per reading: ``{"kind", "seed", "checks"}``.
 Needs a CUDA card unless ``FLOWBENCH_CPU_REHEARSAL=1``.
 """
@@ -26,9 +27,8 @@ import torch
 
 from .control import CONTROLS
 from .faults import FAULTS
-from .reference.model import init_params
-from .run import ROOT, cell_setup
-from .traffic.generator import load_mix, make_pool, request_order
+from .run import ROOT, cell_setup, pool_maker
+from .traffic.generator import load_mix
 
 __all__ = ["reading", "main"]
 
@@ -36,13 +36,13 @@ __all__ = ["reading", "main"]
 def reading(cell: dict, seed: int, program=None, requests: int = 8) -> dict:
     cfg, mix, capacities, device = cell_setup(cell)
     entry = importlib.import_module(f"flowbench.entries.{mix['entry']}")
+    traffic = pool_maker(mix)
     kw = {} if program is None else {"program": program}
-    session = entry.Session(cfg, capacities, mix,
-                                 make_pool(mix, seed), init_params(cfg, seed, device),
-                                 seed, device, **kw)
-    order = request_order(mix, seed)
+    session = entry.Session(cfg, capacities, mix, traffic.make_pool(mix, seed),
+                            entry.init_params(cfg, seed, device), seed, device, **kw)
+    order = traffic.request_order(mix, seed)
     session.warm(order)
-    if mix["entry"] == "forward":
+    if session.entry == "forward":
         for _ in range(requests):
             session.call(next(order))
     session.release()

@@ -7,10 +7,12 @@ the measured program, ``hplflownet_tpu_torch``.  The cell (an entry of
 ``BENCHMARK.json``'s ``workloads``) names a configuration
 (``flowbench/configs/<config>.json``) and a traffic mix
 (``flowbench/traffic/<traffic>.json``), and the mix names the entry
-(``flowbench/entries/<entry>.py``).  A run:
+(``flowbench/entries/<entry>.py``) and, optionally, its pool maker
+(``flowbench/traffic/<generator>.py``, ``generator.py`` by default).  A run:
 
-1. set-up: makes the weights on the card from the seed, the pool of pairs
-   from the seed, the program, and the entry's warm-up calls;
+1. set-up: makes the weights on the card from the seed (the entry's
+   ``init_params``), the pool from the seed (the pool maker's
+   ``make_pool``), the program, and the entry's warm-up calls;
 2. the window: a closed loop of requests, pool pairs in an order drawn from
    the seed, for ``--seconds`` on the host clock;
 3. a profiled stretch of a few more requests (``torch.profiler``, after
@@ -53,7 +55,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-__all__ = ["main", "run", "cell_setup", "process_start", "FORBIDDEN"]
+__all__ = ["main", "run", "cell_setup", "pool_maker", "process_start", "FORBIDDEN"]
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(__file__).resolve().parent
@@ -138,12 +140,17 @@ def cell_setup(cell: dict):
     return cfg, mix, cfg["capacities"][points], device
 
 
+def pool_maker(mix: dict):
+    """The module that makes the mix's pool and request order, with
+    ``make_pool(mix, seed)`` and ``request_order(mix, seed)``:
+    ``flowbench/traffic/<mix["generator"]>.py``, ``generator.py`` where the
+    mix names none."""
+    return importlib.import_module(f"flowbench.traffic.{mix.get('generator', 'generator')}")
+
+
 def run(args, session_kw=None) -> dict | None:
     """One run; the result dict, or None where no result may be printed."""
     import torch
-
-    from .reference.model import init_params
-    from .traffic.generator import make_pool, request_order
 
     rehearsal = os.environ.get(REHEARSAL_ENV) == "1"
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -169,11 +176,12 @@ def run(args, session_kw=None) -> dict | None:
         torch.set_num_threads(1)
 
     entry = importlib.import_module(f"flowbench.entries.{mix['entry']}")
-    params = init_params(cfg, args.seed, device)
-    pool = make_pool(mix, args.seed)
-    order = request_order(mix, args.seed)
+    traffic = pool_maker(mix)
+    params = entry.init_params(cfg, args.seed, device)
+    pool = traffic.make_pool(mix, args.seed)
+    order = traffic.request_order(mix, args.seed)
     session = entry.Session(cfg, capacities, mix, pool, params, args.seed,
-                                 device, **(session_kw or {}))
+                            device, **(session_kw or {}))
     session.warm(order)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
@@ -195,7 +203,7 @@ def run(args, session_kw=None) -> dict | None:
         now = t
     window_s = now - t0
     tenth = max(1, len(lat) // 10)
-    _log(f"window: {len(ks)} {mix['entry']} calls in {window_s:.3f} s; ms per "
+    _log(f"window: {len(ks)} {session.entry} calls in {window_s:.3f} s; ms per "
          f"call: median {statistics.median(lat):.2f}, first tenth "
          f"{statistics.fmean(lat[:tenth]):.2f}, last tenth "
          f"{statistics.fmean(lat[-tenth:]):.2f}, most {max(lat):.2f}")
@@ -203,7 +211,7 @@ def run(args, session_kw=None) -> dict | None:
     from .trace import profile_calls
     spans, readers = {}, {}
     per_layer = cell_metrics(bench, cell["name"], "per_layer")
-    prof_ks = [next(order) for _ in range(PROFILED_CALLS[mix["entry"]])]
+    prof_ks = [next(order) for _ in range(PROFILED_CALLS[session.entry])]
     trace = profile_calls(session.call, prof_ks, device)
     _log(f"profiled {len(prof_ks)} calls: {len(trace.device_ops)} device ops, "
          f"{trace.busy_s * 1e3 / len(prof_ks):.4f} device ms a call")
@@ -232,7 +240,7 @@ def run(args, session_kw=None) -> dict | None:
         _log(f"modules of JAX or the JAX package are loaded: {stray}: no result")
         return {"_forbidden": stray}
 
-    rec = Record(entry=mix["entry"], cfg=cfg, setup_s=setup_s, window_s=window_s,
+    rec = Record(entry=session.entry, cfg=cfg, setup_s=setup_s, window_s=window_s,
                  completed=len(ks), latencies_ms=lat, window_ks=ks, trace=trace,
                  profiled_ks=prof_ks, spans=spans, work=work,
                  device=device, session=session)

@@ -1,9 +1,14 @@
-"""The one traffic generator: a mix file's parameters and a seed -> requests.
+"""The traffic generator of FT3D-like pairs: a mix file's parameters and a
+seed -> requests.
 
 A mix is ``flowbench/traffic/<name>.json``.  Its keys:
 
 * ``entry``: which entry of the program the requests drive
   (``flowbench/entries/<entry>.py``);
+* ``generator`` (optional): the module of ``flowbench/traffic/`` that
+  makes the mix's pool and request order (``make_pool(mix, seed)``,
+  ``request_order(mix, seed)``); without it, this one.  Every mix has
+  ``num_points``, ``pool`` and ``check``: the rehearsal cuts them;
 * ``num_points``: points per cloud;
 * ``pool``: distinct pairs made per run; requests cycle through the pool,
   in a fresh order drawn from the seed on every pass;

@@ -9,7 +9,10 @@ one entry per product; this module sums them per class of work:
   ``corr_cross`` in its direct (F, Cc) form);
 * ``dense``: ``2 K N`` per real row (a scale's valid vertices, a cloud's
   valid points; padding rows are no work);
-* ``splat`` and ``slice``: ``2 C`` per present (point, vertex) pair.
+* ``splat`` and ``slice``: ``2 C`` per present (point, vertex) pair;
+* any other kind: the log entry's own ``flops`` (a reference that logs a new
+  kind of product says what it costs; :func:`model_flops` refuses an entry
+  of an unknown kind without it).
 
 Bytes count each input element read once and each output written once:
 inputs at the configuration's compute dtype (bfloat16: 2 bytes), outputs
@@ -97,8 +100,12 @@ def model_flops(log) -> float:
             total += 2.0 * e["present"] * e["c_in"] * e["c_out"]
         elif e["kind"] == "dense":
             total += 2.0 * e["rows"] * e["k"] * e["n"]
-        else:
+        elif e["kind"] in ("splat", "slice"):
             total += 2.0 * e["entries"] * e["c"]
+        elif "flops" in e:
+            total += float(e["flops"])
+        else:
+            raise ValueError(f"a work log entry of kind {e['kind']!r} has no 'flops'")
     return total
 
 
