@@ -100,10 +100,19 @@ Phases, each printing a line with its elapsed seconds:
             forward against its plain version on its inputs (CALL_TOL); the
             32768-point flow against the forward with the plain versions
             forced (phase 5's bound);
-15. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
+15. segment  SPLATNet3D (``pipeline.segment_forward``, bf16, seeded
+            weights and BatchNorm statistics) on one 98304-point cloud at
+            SEG_CAPACITIES: the launches of kernels 1 and 2 and
+            ``dense_gemm`` (5 / 8 / 3: kernel 2 twice where a BCL's splat
+            runs are split, ``ops.segment.run_sums``), zero overflow,
+            every kernel call against its plain version on its inputs
+            (CALL_TOL), kernel 2's parts passes, the K = 960 GEMM and the
+            256 -> 256 blurs among them, the logits against the forward
+            with the plain versions forced (phase 5's bound), ms a cloud;
+16. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
             the device builder on the 8192-point pair at scale 1.0: ids,
             unique keys, neighbour and correlation tables equal; host ms;
-16. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
+17. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
             on the one card, fresh interpreters started by
             ``tools.dryrun_multiprocess``, take one step of the flagship
             (float32, 8192 points, global batch 2, the second sample's
@@ -114,7 +123,7 @@ Phases, each printing a line with its elapsed seconds:
             world size 1, bit for bit against the single-process step on
             one sample; kernels 1-4 launched in every rank, the step's ms
             (after the phases it could slow: it starts NCCL in this process);
-17. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
+18. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
             gloo ranks on the one card (fresh interpreters) run the flagship
             forward (bf16, 8192 points) with the probes split over the taps
             and the blur / correlation vertices over the ranks: the flow
@@ -126,9 +135,9 @@ Phases, each printing a line with its elapsed seconds:
             ms/pair sharded and unsharded on the host clock (two ranks
             share one card: no scaling figure); then one NCCL rank at
             world size 1, bit for bit;
-18. plans   the CUDA kernels that one pair's stencil plans launch
+19. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; tracing slows the host afterwards);
-19. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
+20. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
             sort and probed in one join): every table of the flagship and
             the shallow model's pyramids for the 8192-point pair under "1"
             and "3584" against "0", the flagship flow and one train step's
@@ -2280,6 +2289,141 @@ def phase_large(results):
                         "plain": plain}
 
 
+# the segment phase: SPLATNet3D at its published widths (flowbench's
+# splatnet3d configuration), one cloud of SEG_POINTS on five lattices of its
+# own points halving from 3.0, capacities of flowbench/tools/cloud_capacities.py
+SEG_SFM = [[3.0, 1, -1, -1], [1.5, 1, -1, -1], [0.75, 1, -1, -1],
+           [0.375, 1, -1, -1], [0.1875, 1, -1, -1]]
+SEG_POINTS = 98304
+SEG_CAPACITIES = [90240, 30848, 8704, 1920, 512]
+SEG_SEED = 7
+
+
+def segment_launches(n_points: int, capacities) -> dict:
+    """What one SPLATNet3D forward launches: a blur (kernel 1) and a splat
+    (kernel 2) a BCL, a second kernel-2 pass over the parts where the
+    splat's d + 1 = 4 entries a point average ``ops.segment.SPLIT`` or more
+    a vertex (``run_sums``), and conv1, conv2 and the classifier."""
+    from hplflownet_tpu_torch.ops.segment import SPLIT
+    long = sum(4 * n_points >= SPLIT * c for c in capacities)
+    return {"stencil_gather_matmul": len(capacities),
+            "rank_reduce": len(capacities) + long, "dense_gemm": 3}
+
+
+def _segment_model(device):
+    """SPLATNet3D in bf16 on seeded weights: Glorot kernels, biases 0.01 z,
+    BatchNorm gamma exp(0.25 z), beta and mean 0.1 z, var exp(0.5 z)."""
+    import torch
+    from hplflownet_tpu_torch.models import SPLATNet3D
+    from hplflownet_tpu_torch.models.init import reinit_params
+    model = SPLATNet3D(SEG_SFM, compute_dtype="bfloat16", device=device)
+    gen = torch.Generator().manual_seed(SEG_SEED)
+    state = reinit_params(gen, model.state_dict())
+    draw = {"bias": lambda z: 0.01 * z, "gamma": lambda z: torch.exp(0.25 * z),
+            "beta": lambda z: 0.1 * z, "mean": lambda z: 0.1 * z,
+            "var": lambda z: torch.exp(0.5 * z)}
+    for k, v in state.items():
+        kind = k.rsplit(".", 1)[1].rsplit("_", 1)[-1]
+        if kind in draw:
+            state[k] = draw[kind](torch.randn(v.shape, generator=gen)).to(v.device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _segment_cases(calls) -> dict:
+    """How many recorded calls are the shapes the segment path adds: kernel
+    2's second pass (R = 0 over the parts), ``dense_gemm`` at K = 960 and
+    kernel 1's 256 -> 256 blurs."""
+    import inspect
+    wrappers = _kernel_wrappers()
+    found = {"rank_reduce parts": 0, "dense_gemm K=960": 0,
+             "stencil_gather_matmul 256->256": 0}
+    for name, a, kw, _ in calls:
+        args = inspect.signature(wrappers[name]).bind(*a, **kw).arguments
+        if name == "rank_reduce" and args["rid"] is None:
+            found["rank_reduce parts"] += 1
+        elif name == "dense_gemm" and args["x"].shape[1] == 960:
+            found["dense_gemm K=960"] += 1
+        elif name == "stencil_gather_matmul" and \
+                tuple(args["weight"].shape[1:]) == (256, 256):
+            found["stencil_gather_matmul 256->256"] += 1
+    return found
+
+
+def phase_segment(results):
+    """SPLATNet3D's forward (``pipeline.segment_forward``, bf16) on one
+    SEG_POINTS cloud: the launches of kernels 1 and 2 and ``dense_gemm``
+    against ``segment_launches``, zero overflow, every kernel call against
+    its plain version on its inputs (CALL_TOL; kernel 2's split passes,
+    K = 960 and the 256 -> 256 blurs among them), the logits against the
+    forward with the plain versions forced, and ms a cloud."""
+    import numpy as np
+    import torch
+    from hplflownet_tpu_torch.kernels import plain_kernels
+    from hplflownet_tpu_torch.lattice import build_scales
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.pipeline import make_lattice_spec, segment_forward
+    from hplflownet_tpu_torch.tools.step_calls import check_calls, recorded_calls
+
+    pts = synthetic_frustum_clouds(1, SEG_POINTS, seed=0)[0][0]
+    spec = make_lattice_spec(SEG_SFM, SEG_CAPACITIES)
+    model = _segment_model(DEVICE)
+
+    def fwd():
+        return segment_forward(model, spec, pts)
+    wrappers = {k: w for k, w in _kernel_wrappers().items()
+                if k in FORWARD_KERNELS}
+    logits, launches = _counted(wrappers, fwd)
+    want = segment_launches(SEG_POINTS, SEG_CAPACITIES)
+    log(f"segment launches: {launches} (expected {want})")
+    if DEVICE == "cuda" and launches != want:
+        raise AssertionError(f"segment forward: launches {launches}, not {want}")
+    out = logits.cpu().numpy()
+    if out.shape != (SEG_POINTS, 50) or not np.isfinite(out).all():
+        raise AssertionError(f"logits shape {out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}")
+    with torch.inference_mode():
+        scales = build_scales(spec, torch.from_numpy(pts).to(DEVICE))
+    overflow = [int(sc.cloud.overflow) for sc in scales]
+    vertices = [int(sc.cloud.num_valid) for sc in scales]
+    if any(overflow):
+        raise AssertionError(f"segment build overflow {overflow}")
+    log(f"segment logits {out.shape} finite; vertices per scale {vertices} "
+        f"of {SEG_CAPACITIES}, overflow 0")
+
+    with recorded_calls() as calls:
+        fwd()
+    cases = _segment_cases(calls)
+    per_call = check_calls(calls, CALL_TOL)
+    del calls
+    log("segment, every kernel call vs its plain version: "
+        + "; ".join(f"{k} {v['calls']} calls at {v['shapes']} shapes, worst "
+                    f"{v['worst']:.3e}" for k, v in per_call.items())
+        + f"; among them {cases}")
+    need = {"rank_reduce parts": want["rank_reduce"] - len(SEG_CAPACITIES),
+            "dense_gemm K=960": 1, "stencil_gather_matmul 256->256": 2}
+    if cases != need:
+        raise AssertionError(f"segment calls {cases}, not {need}")
+
+    with plain_kernels():
+        plain = fwd()
+    err, rel = _flow_rel(logits, plain)
+    if rel > FLOW_REL_TOL:
+        raise AssertionError(f"bf16 logits, kernels vs plain: max rel "
+                             f"{rel:.3e} > {FLOW_REL_TOL}")
+    log(f"bf16 logits, kernels vs plain versions: max abs {err:.3e}, max rel "
+        f"{rel:.3e} (limit {FLOW_REL_TOL})")
+    del plain, scales
+    ms = cuda_ms(fwd, reps=5, warmup=1)
+    log(f"SPLATNet3D forward (five one-cloud builds + model, bf16, host "
+        f"points in): {ms:.2f} ms a cloud over 5 reps")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    results["segment"] = {"launches": launches, "calls": per_call,
+                          "cases": cases, "vertices": vertices,
+                          "max_rel": rel, "ms_per_cloud": ms}
+
+
 def phase_native(results):
     """The host builder (``native``, built with g++) against the device
     builder: the 8192-point pair at scale 1.0, every table equal."""
@@ -2642,6 +2786,7 @@ def kernels_line(results) -> dict:
         for key, counts in (
                 ("launches_shallow_step", shallow.get("step_launches", {})),
                 ("launches_shallow_forward", shallow.get("forward_launches", {})),
+                ("launches_segment", results.get("segment", {}).get("launches", {})),
                 ("launches_driver_train", driver.get("train_launches", {})),
                 ("launches_driver_eval", driver.get("eval_launches", {})),
                 ("launches_dp_rank0", (dp.get("launches") or [{}])[0]),
@@ -2714,6 +2859,7 @@ def main(argv=None) -> int:
               ("bench", lambda: phase_bench(results)),
               ("synthetic", lambda: phase_synthetic(results)),
               ("large", lambda: phase_large(results)),
+              ("segment", lambda: phase_segment(results)),
               ("native", lambda: phase_native(results)),
               ("dp", lambda: phase_dp(results)),
               ("lattice", lambda: phase_lattice(results)),

@@ -22,6 +22,10 @@ JAX package; off by default) builds both clouds of a scale from one
 tagged sort and probes both tables in one join
 (:func:`_build_two_from_elevated`, :func:`_probe_two`): the same tables,
 bit for bit, from about a third fewer operators.
+
+:func:`build_scales` is the one-cloud build of a multi-lattice model
+(SPLATNet3D): every scale elevated from the same points, each with its
+blur table, and no second cloud.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from .geometry import elevate, simplex_from_elevated
 from .offsets import neighborhood_offsets
 
 __all__ = ["probe_sharding", "ScaleSpec", "LatticeSpec", "CloudLattice",
-           "ScalePair", "build_pyramid", "default_capacities"]
+           "ScalePair", "CloudScale", "build_pyramid", "build_scales",
+           "default_capacities"]
 
 _DELTA_MARGIN = 16   # headroom for stencil deltas (|combined offset| <= 8)
 _SENTINEL = int(np.iinfo(np.int32).max)
@@ -110,6 +115,14 @@ class ScalePair(NamedTuple):
     pc2_corr_uniq_inv: torch.Tensor   # (U, H2) i32 adjoint map, or (1, 1)
     probe_overflow: torch.Tensor      # () i32, always 0 (exact probes)
     stencil_overflow: torch.Tensor    # () i32, always 0 (window-free kernels)
+
+
+class CloudScale(NamedTuple):
+    """One cloud's lattice at one scale and its blur table
+    (:func:`build_scales`)."""
+
+    cloud: CloudLattice
+    blur_neighbors: torch.Tensor      # (F, H) i32
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +656,42 @@ def build_pyramid(spec: LatticeSpec,
                         elev1, valid1 = _next_elevated(cl1, d, ss.scale, nxt, bits)
                         elev2, valid2 = _next_elevated(cl2, d, ss.scale, nxt, bits)
         return scales_out
+
+
+def build_scales(spec: LatticeSpec,
+                 points: torch.Tensor,                # (N, d) float32
+                 valid: torch.Tensor | None = None,   # (N,) bool
+                 ) -> list:
+    """One cloud's lattice at every scale of ``spec``, each elevated from
+    ``points`` themselves, with its blur table -> one :class:`CloudScale`
+    per scale.
+
+    The scales are independent lattices of one cloud (SPLATNet3D's BCLs),
+    not a pyramid: no scale is built from another's vertices.  Every scale
+    blurs (its ``blur_radius``); the correlation radii are not read.  ``HPL_FUSED_BUILD`` does not apply:
+    it fuses the two clouds of a pair, and there is one.  Marks the spans
+    of :func:`build_pyramid` but ``lattice.next``, and counts
+    ``lattice.vertices`` (the cloud's ``num_valid``) against
+    ``lattice.rows`` (the capacity) per scale.
+    """
+    with span("lattice.build"):
+        dev = points.device
+        d, bits = spec.d, spec.coord_bits
+        if valid is None:
+            valid = torch.ones(points.shape[0], dtype=torch.bool, device=dev)
+        out = []
+        for i, ss in enumerate(spec.scales):
+            with span(f"lattice.scale{i}"):
+                with span("lattice.dedup"):
+                    cl = _build_from_elevated(elevate(points, ss.scale), valid,
+                                              ss.capacity, bits)
+                with span("lattice.tables"):
+                    nb = _neighbor_table(
+                        cl, neighborhood_offsets(ss.blur_radius, d), d, bits)
+                out.append(CloudScale(cl, nb))
+                count("lattice.vertices", cl.num_valid)
+                count("lattice.rows", ss.capacity)
+        return out
 
 
 def default_capacities(num_points: int, scales: Sequence[Sequence[float]],

@@ -52,6 +52,7 @@ from ..kernels.dense import dense_gemm, gemm_weight, uses_kernel
 from ..kernels.dkernel import stencil_dkernel
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
+from ..utils.profiling import span
 from .segment import ReducePlan, _wr_forward, weighted_reduce
 from .shard import axis_shard, gather_parts, local_part
 
@@ -346,6 +347,8 @@ class BilateralConv(nn.Module):
     the rest are pointwise (``conv{i}_kernel`` of shape ``(in, out)``).
     Parameter names match the flax module one for one.  ``tap_negation``
     (the stencil's negation permutation) is needed for gradients only.
+    Inside ``utils.profiling.tracing()`` the forward marks ``model.splat``,
+    ``model.blur`` (the stencil conv) and ``model.slice``.
     """
 
     def __init__(self, widths: Sequence[int], filter_size: int,
@@ -386,19 +389,20 @@ class BilateralConv(nn.Module):
         dt = self.compute_dtype
         c = features.shape[-1]
         if self.do_splat:
-            # cast before the splat: a bf16 stream moves half the bytes
-            splatted_pad = splat(features.to(dt), in_barycentric, splat_plan,
-                                 normalize=self.use_norm)
+            with span("model.splat"):
+                # cast before the splat: a bf16 stream moves half the bytes
+                splatted_pad = splat(features.to(dt), in_barycentric,
+                                     splat_plan, normalize=self.use_norm).to(dt)
         else:
-            splatted_pad = torch.cat([features.new_zeros(1, c), features])
-        splatted_pad = splatted_pad.to(dt)
+            splatted_pad = torch.cat([features.new_zeros(1, c), features]).to(dt)
 
         if len(self.widths) > 1 or self.last_relu:
             slope = slope_of(self.use_leaky)
         else:
             slope = None
-        x = blur(splatted_pad, blur_neighbors, self.conv0_kernel.to(dt),
-                 self.conv0_bias, slope, dt, self.tap_negation, blur_plan)
+        with span("model.blur"):
+            x = blur(splatted_pad, blur_neighbors, self.conv0_kernel.to(dt),
+                     self.conv0_bias, slope, dt, self.tap_negation, blur_plan)
 
         for i in range(1, len(self.widths)):
             on = i < len(self.widths) - 1 or self.last_relu
@@ -408,8 +412,9 @@ class BilateralConv(nn.Module):
 
         if not self.do_slice:
             return x
-        sliced = slice_to_points(x, out_barycentric, out_lattice_offset,
-                                 out_splat_plan)
-        if self.use_bias:
-            sliced = sliced + self.slice_bias
-        return sliced.to(dt)
+        with span("model.slice"):
+            sliced = slice_to_points(x, out_barycentric, out_lattice_offset,
+                                     out_splat_plan)
+            if self.use_bias:
+                sliced = sliced + self.slice_bias
+            return sliced.to(dt)

@@ -12,7 +12,11 @@ Two routes reduce a rank-mode plan's weighted stream: by default the
 ``HPL_RANK_FUSED=1`` (``ops.dispatch.rank_fused_enabled``, off in
 ``exact_mode()``) the ``blocked_rank_reduce`` kernel sums by the rank each
 entry carries, as JAX's ``_wr_rank_fused`` does.  Both sum a run in stream
-order, so on the card they agree bit for bit.
+order, so on the card they agree bit for bit on every plan whose runs
+average fewer than ``SPLIT`` entries: every plan of the two flow models, at
+every capacity the benchmark gives them (tests/test_torch_splatnet.py pins
+it).  Longer runs the default route sums in parts (:func:`run_sums`), which
+rounds otherwise than one walk of the run.
 
 Invalid entries (id -1: invalid points, or vertices dropped past capacity)
 lie in no run and contribute nothing; on the fused route they carry a rank
@@ -39,9 +43,11 @@ from ..kernels.splat import rank_reduce
 from .dispatch import rank_fused_enabled
 
 __all__ = ["ReducePlan", "local_ranks", "make_reduce_plan",
-           "apply_reduce_plan", "weighted_reduce", "rank_fused_args"]
+           "apply_reduce_plan", "weighted_reduce", "rank_fused_args",
+           "run_sums", "SPLIT"]
 
 _BLOCK = 128
+SPLIT = 32                       # entries per part of a long run (run_sums)
 _BIG = int(np.iinfo(np.int32).max)
 _NO_RANK = 1 << 28               # the fused route's rank for id -1 entries
 
@@ -158,6 +164,40 @@ def _wr_rank_fused(plan: ReducePlan, g: torch.Tensor, rid: torch.Tensor,
     return out[:plan.start.shape[0]]
 
 
+def run_sums(g: torch.Tensor, rid: torch.Tensor | None, start: torch.Tensor,
+             end: torch.Tensor, c: int, with_weights: bool) -> torch.Tensor:
+    """``rank_reduce``'s run sums, where the runs average ``SPLIT`` entries
+    or more (a lattice with far fewer vertices than splat entries: a coarse
+    scale built from a whole cloud) in two launches: each run in parts of
+    at most ``SPLIT`` entries, then each run's parts in order.
+
+    The kernel walks a run with one warp, so one launch over such a plan
+    takes as long as its longest run (thousands of entries at SPLATNet3D's
+    coarsest scale), and that length is the cloud's.  Parts fill the card
+    whatever the runs' lengths.  The sums are folds in a fixed order: a
+    rerun gives the same bits.  Shapes stay static: the parts are bounded
+    by T + ceil(M / SPLIT), and the bound's unused parts are empty runs.
+
+    A stopgap: once ``rank_reduce`` splits a long run over warps itself,
+    this function and ``SPLIT`` go, and ``_wr_forward`` calls the kernel
+    once again.
+    """
+    m, t = g.shape[0], start.shape[0]
+    if m < SPLIT * t:
+        return rank_reduce(g, rid, start, end, c, with_weights)
+    n = torch.div(end - start + (SPLIT - 1), SPLIT, rounding_mode="floor")
+    last = torch.cumsum(n, dim=0, dtype=torch.int32)          # parts to run t
+    first = last - n
+    j = torch.arange(t - (-m // SPLIT), dtype=torch.int32, device=g.device)
+    run = torch.searchsorted(last, j, right=True, out_int32=True).clamp(max=t - 1)
+    live = j < last[-1]
+    lo = start[run] + (j - first[run]) * SPLIT
+    hi = torch.minimum(lo + SPLIT, end[run])
+    parts = rank_reduce(g, rid, torch.where(live, lo, m),
+                        torch.where(live, hi, m), c, with_weights)
+    return rank_reduce(parts, None, first, last, parts.shape[1])
+
+
 def _wr_forward(with_weights: bool, plan: ReducePlan, rows: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     r = weights.shape[1]
@@ -168,7 +208,7 @@ def _wr_forward(with_weights: bool, plan: ReducePlan, rows: torch.Tensor,
     rid = (perm % r).to(torch.int32)
     if plan.r0.shape[0] > 1 and rank_fused_enabled():
         return _wr_rank_fused(plan, g, rid, c, r, with_weights)
-    return rank_reduce(g, rid, plan.start, plan.end, c, with_weights)
+    return run_sums(g, rid, plan.start, plan.end, c, with_weights)
 
 
 class _WeightedReduce(torch.autograd.Function):

@@ -3,7 +3,9 @@
 Port of ``hplflownet_tpu/pipeline.py``.  ``flow_forward`` runs on the
 model's device (the CUDA card unless the model was made with
 ``device="cpu"``) under ``torch.inference_mode()``; ``batched_flow_forward``
-runs it over a (B, N, d) batch, one sample at a time.
+runs it over a (B, N, d) batch, one sample at a time.  ``segment_forward``
+is the one-cloud path of SPLATNet3D: one lattice per scale of the same
+points, then per-point logits.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ from typing import Sequence
 import torch
 
 from .lattice.build import (LatticeSpec, ScaleSpec, build_pyramid,
-                            default_capacities)
+                            build_scales, default_capacities)
 
-__all__ = ["make_lattice_spec", "flow_forward", "batched_flow_forward"]
+__all__ = ["make_lattice_spec", "flow_forward", "batched_flow_forward",
+           "segment_forward"]
 
 
 def make_lattice_spec(scales_filter_map: Sequence[Sequence[float]],
@@ -80,3 +83,19 @@ def batched_flow_forward(model, spec: LatticeSpec, pc1, pc2, valid1=None,
         valid2 = [None] * n_batch
     return torch.stack([flow_forward(model, spec, pc1[b], pc2[b], valid1[b],
                                      valid2[b]) for b in range(n_batch)])
+
+
+def segment_forward(model, spec: LatticeSpec, points, valid=None) -> torch.Tensor:
+    """Single cloud: points -> one lattice per scale of ``spec``
+    (``build_scales``) -> model -> (N, classes) float32 logits.
+
+    ``points`` is an (N, d) array or tensor and ``valid`` an optional (N,)
+    mask, moved to the model's device; runs under
+    ``torch.inference_mode()``.  ``spec``'s rows are
+    ``[scale, blur_radius, -1, -1]``.
+    """
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        points = _as_tensor(points, torch.float32, device)
+        valid = _as_tensor(valid, torch.bool, device)
+        return model(points, build_scales(spec, points, valid))

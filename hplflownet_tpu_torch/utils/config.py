@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..models.init import INIT_SCHEMES
-
 __all__ = ["Config", "parse_args_from_yaml", "postprocess"]
 
+# the models the driver trains and evaluates on scene-flow pairs; the
+# one-cloud SPLATNet3D is in ``models.MODELS`` only
 MODEL_NAMES = ("HPLFlowNet", "HPLFlowNetShallow")
 DATASET_NAMES = ("FlyingThings3DSubset", "KITTI")
 
@@ -67,6 +67,10 @@ def _require(cond: bool, msg: str) -> None:
 def postprocess(args: Config) -> Config:
     """Validation + normalization (reference: cmd_args.py:23-56)."""
     args.allow_less_points = bool(args.get_or("allow_less_points", False))
+
+    # imported here, not at the top: ops.bcl imports utils.profiling, whose
+    # package imports this module, so a top-level models import would cycle
+    from ..models.init import INIT_SCHEMES
 
     _require(args.get_or("arch", None) in MODEL_NAMES,
              f"unknown arch {args.get_or('arch', None)}")

@@ -1,4 +1,4 @@
-"""chip_smoke.py's fused_build phase (19), rehearsed on the CPU.
+"""chip_smoke.py's fused_build phase (20), rehearsed on the CPU.
 
 At test_torch_chip_smoke_large.py's small size (the flagship at 128
 points, small capacities, one torch thread), with the plain versions: the

@@ -1,5 +1,5 @@
-"""chip_smoke.py's main path, large, native and lattice phases, rehearsed
-on the CPU, and the order of the phases.
+"""chip_smoke.py's main path, large, segment, native and lattice phases,
+rehearsed on the CPU, and the order of the phases.
 
 At a small size (the flagship at 128 and 192 points in the large phase,
 128 points elsewhere, one rep), with the plain versions, so that a chip
@@ -48,6 +48,30 @@ def test_large_and_native_phases(small_cpu_smoke):
     small_cpu_smoke.phase_native(results)
     assert results["native"]["equal"]["corr_pc2"]
     assert results["native"]["points"] == 128
+
+
+def test_segment_phase(small_cpu_smoke, monkeypatch):
+    """SPLATNet3D at 4096 points, where the coarsest BCL's splat runs are
+    split (``run_sums``): every kernel call replayed against its plain
+    version, the split pass, K = 960 and the 256 -> 256 blurs among them,
+    and the launches a card must count, there and at the full size."""
+    caps = [16384, 12288, 7168, 1536, 384]
+    full = small_cpu_smoke.segment_launches(small_cpu_smoke.SEG_POINTS,
+                                            small_cpu_smoke.SEG_CAPACITIES)
+    assert full == {"stencil_gather_matmul": 5, "rank_reduce": 8, "dense_gemm": 3}
+    monkeypatch.setattr(small_cpu_smoke, "SEG_POINTS", 4096)
+    monkeypatch.setattr(small_cpu_smoke, "SEG_CAPACITIES", caps)
+    results = {}
+    small_cpu_smoke.phase_segment(results)
+    seg = results["segment"]
+    assert seg["launches"] == dict.fromkeys(small_cpu_smoke.FORWARD_KERNELS, 0)
+    assert small_cpu_smoke.segment_launches(4096, caps)["rank_reduce"] == 6
+    assert seg["cases"] == {"rank_reduce parts": 1, "dense_gemm K=960": 1,
+                            "stencil_gather_matmul 256->256": 2}
+    calls = {k: v["calls"] for k, v in seg["calls"].items()}
+    assert calls == {"stencil_gather_matmul": 5, "rank_reduce": 6, "dense_gemm": 3}
+    assert all(0 < v <= caps[i] for i, v in enumerate(seg["vertices"]))
+    assert seg["max_rel"] == 0.0 and seg["ms_per_cloud"] > 0
 
 
 def test_main_path_phase(small_cpu_smoke):

@@ -55,10 +55,12 @@ def test_port_and_chip_smoke_import_without_jax():
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[1])
     # every subpackage and module was walked, the later slices' too (79
-    # since tools.op_profile went, 80 with kernels.dense)
-    assert n >= 80, r.stdout
+    # since tools.op_profile went, 80 with kernels.dense, 81 with
+    # models.splatnet)
+    assert n >= 81, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
-                "models.hplflownet_shallow", "data", "data.io", "data.transforms",
+                "models.hplflownet_shallow", "models.splatnet", "data", "data.io",
+                "data.transforms",
                 "data.datasets", "data.loader", "train.metrics",
                 "train.geometry2d", "train.checkpoint", "train.driver", "utils",
                 "utils.config", "utils.logging", "utils.profiling", "main",

@@ -36,7 +36,8 @@ from hplflownet_tpu.ops import segment as jseg
 from hplflownet_tpu.ops.dispatch import exact_mode
 from hplflownet_tpu.pipeline import flow_forward as jax_flow_forward
 from hplflownet_tpu.train.step import _batched_loss as jax_batched_loss
-from hplflownet_tpu_torch.models import MODELS, HPLFlowNet, HPLFlowNetShallow, get_model
+from hplflownet_tpu_torch.models import (MODELS, HPLFlowNet, HPLFlowNetShallow,
+                                         SPLATNet3D, get_model)
 from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
 from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
 from hplflownet_tpu_torch.train import step as tstep
@@ -216,7 +217,9 @@ def test_seeded_params_have_the_jax_tree_structure():
 
 
 def test_registry_and_scale_counts():
-    assert MODELS == {"HPLFlowNet": HPLFlowNet, "HPLFlowNetShallow": HPLFlowNetShallow}
+    # the two flow models, and SPLATNet3D, the one-cloud segmenter
+    assert MODELS == {"HPLFlowNet": HPLFlowNet, "HPLFlowNetShallow": HPLFlowNetShallow,
+                      "SPLATNet3D": SPLATNet3D}
     model = get_model("HPLFlowNetShallow", scales_filter_map=SFM5, device="cpu")
     assert isinstance(model, HPLFlowNetShallow)
     with pytest.raises(KeyError, match="available"):

@@ -3,7 +3,8 @@ benchmark's reader of them (``flowbench.layers``), on the CPU.
 
 * Under ``torch.profiler`` inside ``tracing()``, ``flow_forward`` (both
   models) and one ``make_train_step`` step record every span of PERF.md's
-  table, each inside the span it belongs to; without ``tracing()`` the
+  table, each inside the span it belongs to (a BCL's ``model.splat``,
+  ``model.blur`` and ``model.slice`` inside its module's); without ``tracing()`` the
   same profiler sees none of them (with CUDA activity on, each range would
   add a ``gpu_user_annotation`` device event to the harness's trace).
 * The flow, the loss and the updated parameters are bit for bit the same
@@ -111,6 +112,10 @@ def _expected(arch, what):
     want |= {("model.forward", None), ("stencil.plans", "model.forward"),
              ("model.embed", "model.forward"), ("model.head", "model.forward")}
     want |= {(f"model.{k}{i}", "model.forward") for i in range(s) for k in ("down", "up")}
+    # each BCL's own stages: the encoder splats and blurs, the decoder
+    # blurs and slices
+    want |= {(k, f"model.down{i}") for i in range(s) for k in ("model.splat", "model.blur")}
+    want |= {(k, f"model.up{i}") for i in range(s) for k in ("model.blur", "model.slice")}
     want |= {(f"model.corr{i}", "model.forward") for i in range(2, s)}
     if what == "train":
         want |= {("train.backward", None), ("train.adam", None)}
