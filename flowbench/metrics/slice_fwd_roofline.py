@@ -8,7 +8,10 @@ counts splat and slice; bytes: the vertices' C features read once in the
 compute dtype (the vertex count is that of the splat before it in the log,
 the same cloud and scale), each present pair's vertex id and barycentric
 weight at 4 bytes each, and the (points, C) result written once in the
-accumulation dtype.  None where the program has no such span."""
+compute dtype: ``model.slice`` hands on ``sliced.to(dt)``, so a slice that
+fuses its cast writes only those bytes, and one that writes a wider
+intermediate first does more than the layer asks.  The same count whatever
+implements the slice.  None where the program has no such span."""
 
 from flowbench.layers import layers
 from flowbench.metrics._spans import profiled_items, self_ms
@@ -16,15 +19,15 @@ from flowbench.work import ZERO, Work, _sizes, roofline
 
 
 def slice_work(log, cfg) -> Work:
-    b_in, b_out = _sizes(cfg)
+    b, _ = _sizes(cfg)
     w, vertices = ZERO, 0
     for e in log:
         if e["kind"] == "splat":
             vertices = e["rows"]
         elif e["kind"] == "slice":
             w = w + Work(2.0 * e["entries"] * e["c"],
-                         b_in * vertices * e["c"] + 8 * e["entries"]
-                         + b_out * e["rows"] * e["c"])
+                         b * vertices * e["c"] + 8 * e["entries"]
+                         + b * e["rows"] * e["c"])
     return w
 
 

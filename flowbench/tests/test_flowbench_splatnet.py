@@ -6,13 +6,15 @@ with float8 operands) and each fault of the segment entry over it; the
 work log holds the reference's kinds and ``model_flops`` counts them by
 their closed forms; and the readers of the cell's new per-layer metrics
 return nothing off the card and, on a stand-in of the layers' numbers,
-the self time of every span of their name and the slice's roofline share.
+the self time of every span of their name and the slice's roofline share,
+its result counted at the compute dtype that ``model.slice`` hands on.
 """
 
 import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -133,6 +135,68 @@ def test_span_readers(rehearsal):
     session._flowbench_layers = {"spans": {"model.forward/model.bcl1": {
         "device_ms": 8.0, "idle_ms": 1.0}}}
     assert all(m.read(card) is None for m in mods.values())
+
+
+def _slice_closed_form(log, s, s_result):
+    """Each slice of E entries onto N points of C channels, after a splat
+    of V vertices: ``(2 E C, s V C + 8 E + s_result N C)``."""
+    w, v = work.ZERO, 0
+    for e in log:
+        if e["kind"] == "splat":
+            v = e["rows"]
+        elif e["kind"] == "slice":
+            w = w + work.Work(2.0 * e["entries"] * e["c"],
+                              s * v * e["c"] + 8 * e["entries"]
+                              + s_result * e["rows"] * e["c"])
+    return w
+
+
+@pytest.mark.parametrize("dtype,log_of", [("bfloat16", "hand"), ("float32", "hand"),
+                                          ("bfloat16", "rehearsal")])
+def test_slice_work_counts_the_result_in_the_compute_dtype(rehearsal, dtype, log_of):
+    """The slice's (points, C) result is charged once at the compute dtype:
+    on a hand-made log, one splat of V vertices and one slice of E entries
+    onto N points of C channels, the work is ``(2 E C, s V C + 8 E + s N C)``
+    with s the dtype's size.  A ``model.slice`` span as long as those bytes
+    take at 3.35 TB/s reads 100%; one as long as the count with the result
+    in float32 reads that much less, under 100% where s is 2."""
+    mod = run.load_metric("slice_fwd_roofline")
+    s = work._SIZE[dtype]
+    if log_of == "hand":
+        v, e, n, c = 37, 211, 64, 48
+        cfg = {"compute_dtype": dtype, "accumulate_dtype": "float32"}
+        log = [{"kind": "splat", "entries": e, "c": c, "rows": v},
+               {"kind": "slice", "entries": e, "c": c, "rows": n}]
+        assert mod.slice_work(log, cfg) == work.Work(2.0 * e * c,
+                                                     s * v * c + 8 * e + s * n * c)
+        session = SimpleNamespace(mix={"pool": 2})
+        logs = {k: log for k in range(2)}
+    else:
+        cfg, mix, caps, dev = run.cell_setup(SPEC)
+        assert cfg["compute_dtype"] == dtype
+        session = segment.Session(cfg, caps, mix, run.pool_maker(mix).make_pool(mix, SEED),
+                                  segment.init_params(cfg, SEED, dev), SEED, dev)
+        logs = {k: session.work(k) for k in range(mix["pool"])}
+    items = [j % session.mix["pool"] for j in range(run.PROFILED_CALLS["forward"])]
+    new, old = work.ZERO, work.ZERO
+    for k in items:
+        assert mod.slice_work(logs[k], cfg) == _slice_closed_form(logs[k], s, s)
+        new = new + mod.slice_work(logs[k], cfg)
+        old = old + _slice_closed_form(logs[k], s, 4)
+
+    def share(nbytes):
+        ms = nbytes / 3.35e12 * 1e3 / len(items)
+        session._flowbench_layers = {"spans": {
+            "model.forward/model.bcl1/model.slice": {"device_ms": ms, "idle_ms": 0.0}}}
+        got, bound = mod.read(run.Record(entry="forward", session=session,
+                                         device=torch.device("cuda"), spans={},
+                                         work=logs, cfg=cfg))
+        assert bound == "bytes"
+        return got
+
+    assert share(new.bytes) == pytest.approx(100.0, rel=1e-12)
+    assert share(old.bytes) == pytest.approx(100.0 * new.bytes / old.bytes, rel=1e-12)
+    assert (share(old.bytes) < 100.0) == (s < 4)
 
 
 def test_the_parent_program_fails_cleanly():

@@ -17,6 +17,8 @@ one entry per product; this module sums them per class of work:
 Bytes count each input element read once and each output written once:
 inputs at the configuration's compute dtype (bfloat16: 2 bytes), outputs
 at its accumulation dtype (float32: 4 bytes), index tables at 4 bytes.
+The slice is the exception: its result is charged at the dtype its span
+hands on (``flowbench/metrics/slice_fwd_roofline.py``).
 The counts depend on the pair's tables, not on how the program computes
 them, so a kernel that skips absent work reads higher, never lower.
 """
