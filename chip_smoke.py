@@ -40,40 +40,51 @@ Phases, each printing a line with its elapsed seconds:
             bit, device ms (a replayed CUDA graph), ms through the
             wrapper, the bound, the plain version's ms and
             ``torch.matmul`` on the bf16 operands;
-5. reference  the float32 forward through the kernels on a 64-point pair
+5. slice    ``slice_points`` (the slice back to points with its bias and
+            cast) on the calls of real forwards (SLICE_CASES: SPLATNet3D's
+            BCL 3 on a 98304-point cloud, the flagship decoder's finest
+            slice at 98304 points and its coarsest at 8192): equal to its
+            plain version, a rerun bit for bit, device ms (a replayed CUDA
+            graph) beside the bytes bound, the plain composition's device
+            ms (which the kernel must beat at every case) and
+            ``index_select`` of the rows;
+6. reference  the float32 forward through the kernels on a 64-point pair
             against the JAX package's output frozen in
             tests/data/torch_port_ref_n64.npz, and the float32 train step's
             loss and gradients on the same pair against JAX's, frozen in
             tests/data/torch_port_train_ref_n64.npz;
-6. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
+7. main path  one 8192-point pair through ``pipeline.flow_forward`` at full
             width (7 scales, bf16 compute): the launch counts of the
             forward's kernels and its stencil plans (and the CUDA kernels
             one pair's plans launch), the flow's shape and finiteness, zero
-            overflow, the same forward with the plain versions forced, and
-            pairs/s;
-7. train    the flagship train step (``train.step.make_train_step``: the
+            overflow, every kernel call against its plain version on its
+            inputs (CALL_TOL; the slice kernel's equal), the same forward
+            with the plain versions forced, and pairs/s;
+8. train    the flagship train step (``train.step.make_train_step``: the
             8192-point pair, batch 1, bf16, Adam at lr 1e-4, overflow skip):
-            the launch counts of all four kernels in one step, two gradient
+            the launch counts of all four kernels in one step, every kernel
+            call of the step against its plain version on its inputs
+            (CALL_TOL; the slice kernel's equal), two gradient
             evaluations bit for bit, the gradients against the same step
             with the plain versions forced (in bf16, and in float32 on a
             float32 copy of the model), and ms/step over timed steps;
-8. fused    the same forward and train step under ``HPL_RANK_FUSED=1``
+9. fused    the same forward and train step under ``HPL_RANK_FUSED=1``
             (the fused rank-mode reduction, ``blocked_rank_reduce``): its
             launch counts per forward and per step (``rank_reduce`` none),
             the flow and gradients against the default route bit for bit,
             ms/pair and ms/step of both routes timed in turns; the
             environment is restored afterwards;
-9. shallow  ``HPLFlowNetShallow`` at full width (5 scales, SFM5, bf16,
+10. shallow  ``HPLFlowNetShallow`` at full width (5 scales, SFM5, bf16,
             the 8192-point pair, capacities SHALLOW_CAPACITIES): a forward
             and a train step with the launch counts of kernels 1-4 and zero
             overflow; every kernel call of the step against its plain
             version on the same inputs (CALL_TOL); the step with the plain
             versions forced (float32 gradients 1e-3; bf16 flow 5e-2, median
             leaf 2e-2, and as close to the float32 gradient as the plain
-            bf16 step is, as in phase 6); pairs/s and ms/step; and the
+            bf16 step is, as in the train phase); pairs/s and ms/step; and the
             float32 64-point pair against the frozen JAX reference
-            tests/data/torch_port_shallow_ref_n64.npz (phase 4's limits);
-10. driver   ``train.driver.run`` on a synthetic FlyingThings3D-layout
+            tests/data/torch_port_shallow_ref_n64.npz (the reference phase's limits);
+11. driver   ``train.driver.run`` on a synthetic FlyingThings3D-layout
             directory (4 train and 3 val frames of 10240 points): the
             flagship trained one epoch (bf16, batch 2, capacities measured
             on the card), every step free of overflow, a finite loss, a
@@ -81,26 +92,26 @@ Phases, each printing a line with its elapsed seconds:
             evaluations from it with six finite metrics, bit-identical;
             train and evaluation pairs/s and the seconds from ``run`` to
             its first step, with the kernels' launches in each;
-11. tools   the op microbench and the two labs
+12. tools   the op microbench and the two labs
             (``hplflownet_tpu_torch.tools``) at few reps, and the launch
             counts of ``row_take`` and ``rank_partial`` in them; then the
             lattice build's stages per scale (``tools.pyramid_bench``);
-12. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
+13. bench   ``hplflownet_tpu_torch.bench`` at a few reps: its JSON line
             (pairs/s, train ms/step, launches, the card), kernels 1-4
             launched in its step;
-13. synthetic  ``tools.train_synthetic`` (the shallow model, 1024 points, 8
+14. synthetic  ``tools.train_synthetic`` (the shallow model, 1024 points, 8
             steps, ``--save-params``), ``tools.eval_synthetic`` on that
             pickle through the driver with the scene dumps, and
             ``data.visualization``'s CLI on them: six finite metrics, zero
             overflow, the .ply and .html files, the rates;
-14. large   ``tools.large_cloud_bench`` at 32768 and 98304 points on the
+15. large   ``tools.large_cloud_bench`` at 32768 and 98304 points on the
             flagship (bf16, capacities measured on seeds 0-2 with slack
             1.25): zero on all four overflow counters, ms/pair, peak MiB,
             launches of kernels 1 and 2; every kernel call of one 98304-point
             forward against its plain version on its inputs (CALL_TOL); the
             32768-point flow against the forward with the plain versions
-            forced (phase 5's bound);
-15. segment  SPLATNet3D (``pipeline.segment_forward``, bf16, seeded
+            forced (the main path's bound);
+16. segment  SPLATNet3D (``pipeline.segment_forward``, bf16, seeded
             weights and BatchNorm statistics) on one 98304-point cloud at
             SEG_CAPACITIES: the launches of kernels 1 and 2 and
             ``dense_gemm`` (5 / 8 / 3: kernel 2 twice where a BCL's splat
@@ -108,11 +119,11 @@ Phases, each printing a line with its elapsed seconds:
             every kernel call against its plain version on its inputs
             (CALL_TOL), kernel 2's parts passes, the K = 960 GEMM and the
             256 -> 256 blurs among them, the logits against the forward
-            with the plain versions forced (phase 5's bound), ms a cloud;
-16. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
+            with the plain versions forced (the main path's bound), ms a cloud;
+17. native  the host builder (``hplflownet_tpu_torch.native``, g++) against
             the device builder on the 8192-point pair at scale 1.0: ids,
             unique keys, neighbour and correlation tables equal; host ms;
-17. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
+18. dp      data parallel (``parallel.make_dp_train_step``): two gloo ranks
             on the one card, fresh interpreters started by
             ``tools.dryrun_multiprocess``, take one step of the flagship
             (float32, 8192 points, global batch 2, the second sample's
@@ -123,7 +134,7 @@ Phases, each printing a line with its elapsed seconds:
             world size 1, bit for bit against the single-process step on
             one sample; kernels 1-4 launched in every rank, the step's ms
             (after the phases it could slow: it starts NCCL in this process);
-18. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
+19. lattice lattice parallel (``parallel.lattice_sharded_forward``): two
             gloo ranks on the one card (fresh interpreters) run the flagship
             forward (bf16, 8192 points) with the probes split over the taps
             and the blur / correlation vertices over the ranks: the flow
@@ -135,9 +146,9 @@ Phases, each printing a line with its elapsed seconds:
             ms/pair sharded and unsharded on the host clock (two ranks
             share one card: no scaling figure); then one NCCL rank at
             world size 1, bit for bit;
-19. plans   the CUDA kernels that one pair's stencil plans launch
+20. plans   the CUDA kernels that one pair's stencil plans launch
             (torch.profiler; tracing slows the host afterwards);
-20. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
+21. fused_build  ``HPL_FUSED_BUILD`` (both clouds of a scale built from one
             sort and probed in one join): every table of the flagship and
             the shallow model's pyramids for the 8192-point pair under "1"
             and "3584" against "0", the flagship flow and one train step's
@@ -172,12 +183,14 @@ SFM7 = [[3.0, 1, -1, -1], [2.0, 1, -1, -1], [1.0, 1, 1, 1],
         [0.0625, 1, 1, 1]]
 CAPACITIES = [25600, 31872, 12928, 3584, 896, 256, 128]
 NUM_POINTS = 8192
-# what a forward launches: kernels 1 and 2 and the dense layers' kernel;
-# the flagship forward's dense products: conv1 3 x 2 clouds, the encoder's
-# pointwise convs 7 x 2, the decoder's 7, the correlations' 3 x 5, the
-# head's 3
-FORWARD_KERNELS = ("stencil_gather_matmul", "rank_reduce", "dense_gemm")
+# what a forward launches: kernels 1 and 2, the dense layers' kernel and
+# the slice kernel; the flagship forward's dense products: conv1 3 x 2
+# clouds, the encoder's pointwise convs 7 x 2, the decoder's 7, the
+# correlations' 3 x 5, the head's 3; its slices: one a decoder BCL
+FORWARD_KERNELS = ("stencil_gather_matmul", "rank_reduce", "dense_gemm",
+                   "slice_points")
 FLAGSHIP_DENSE = 45
+FLAGSHIP_SLICES = 7
 REF_NPZ = os.path.join("tests", "data", "torch_port_ref_n64.npz")
 TRAIN_REF_NPZ = os.path.join("tests", "data", "torch_port_train_ref_n64.npz")
 # the shallow model: tools/train_synthetic.py's 5-scale map; capacities of
@@ -1407,6 +1420,7 @@ def phase_main_path(results):
     from hplflownet_tpu_torch.models import HPLFlowNet
     from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
     from hplflownet_tpu_torch.pipeline import flow_forward, make_lattice_spec
+    from hplflownet_tpu_torch.tools.step_calls import check_calls, recorded_calls
 
     pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
     pc1, pc2 = pc1[0], pc2[0]
@@ -1426,7 +1440,18 @@ def phase_main_path(results):
         raise AssertionError(f"the main path: {launches['dense_gemm']} "
                              f"dense_gemm launches, not one per dense product "
                              f"({FLAGSHIP_DENSE})")
+    if DEVICE == "cuda" and launches["slice_points"] != FLAGSHIP_SLICES:
+        raise AssertionError(f"the main path: {launches['slice_points']} "
+                             f"slice_points launches, not one per slice "
+                             f"({FLAGSHIP_SLICES})")
     results["forward_launches"] = launches
+    with recorded_calls() as calls:
+        flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
+    results["main_calls"] = check_calls(calls, CALL_TOL)
+    del calls
+    log("main path, every kernel call vs its plain version: "
+        + "; ".join(f"{k} {v['calls']} calls at {v['shapes']} shapes, worst "
+                    f"{v['worst']:.3e}" for k, v in results["main_calls"].items()))
 
     out = flow.float().cpu().numpy()
     if out.shape != (NUM_POINTS, 3) or not np.isfinite(out).all():
@@ -1446,7 +1471,7 @@ def phase_main_path(results):
         f"all overflow counters 0; vertices per scale {counts}")
     results.setdefault("plans", {})["builds_forward"] = builds
 
-    before = dict(launches)
+    before = {k: w.launches for k, w in wrappers.items()}
     with plain_kernels():
         flow_plain = flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
     sync()
@@ -1483,6 +1508,7 @@ def phase_train(results):
     from hplflownet_tpu_torch.models import HPLFlowNet
     from hplflownet_tpu_torch.params import params_from_jax, seeded_jax_params
     from hplflownet_tpu_torch.pipeline import make_lattice_spec
+    from hplflownet_tpu_torch.tools.step_calls import check_calls, recorded_calls
     from hplflownet_tpu_torch.train.step import loss_and_grad, make_train_step
 
     pc1, pc2 = synthetic_frustum_clouds(1, NUM_POINTS, seed=0)
@@ -1513,6 +1539,15 @@ def phase_train(results):
     if int(overflow) != 0 or int(new_state.step) != 1:
         raise AssertionError(f"train step: overflow {int(overflow)}, step "
                              f"{int(new_state.step)}")
+
+    # every kernel call of one step's gradients on its own inputs
+    with recorded_calls() as calls:
+        loss_and_grad(model, spec, state.params, batch)
+    results["train_calls"] = check_calls(calls, CALL_TOL)
+    del calls
+    log("train step, every kernel call vs its plain version: "
+        + "; ".join(f"{k} {v['calls']} calls at {v['shapes']} shapes, worst "
+                    f"{v['worst']:.3e}" for k, v in results["train_calls"].items()))
 
     # two gradient evaluations on the same state: bit for bit
     loss1, _, g1 = loss_and_grad(model, spec, state.params, batch)
@@ -1817,10 +1852,10 @@ def phase_shallow(results):
     median = float(np.median(list(grel.values())))
     # bf16 rounds activations and cotangents at every layer, and a one-ulp
     # flip moves the later layers; at the coarsest scale (83 vertices) that
-    # noise exceeds phase 6's 1e-1 limit on a leaf's max (the plain bf16
+    # noise exceeds the train phase's 1e-1 limit on a leaf's max (the plain bf16
     # step lies up to 0.157 of it from float32 on corr3_refine).  The kernels are held to their plain
     # versions call by call above; here the bf16 step must be as close to
-    # the float32 gradient as the plain bf16 step is (phase 6's rule) and
+    # the float32 gradient as the plain bf16 step is (the train phase's rule) and
     # its median leaf within 2e-2 of the plain one.
     w32 = max(r32, key=r32.get)
     n_worst = max(noise, key=noise.get)
@@ -2300,14 +2335,16 @@ SEG_SEED = 7
 
 
 def segment_launches(n_points: int, capacities) -> dict:
-    """What one SPLATNet3D forward launches: a blur (kernel 1) and a splat
-    (kernel 2) a BCL, a second kernel-2 pass over the parts where the
-    splat's d + 1 = 4 entries a point average ``ops.segment.SPLIT`` or more
-    a vertex (``run_sums``), and conv1, conv2 and the classifier."""
+    """What one SPLATNet3D forward launches: a blur (kernel 1), a splat
+    (kernel 2) and a slice a BCL, a second kernel-2 pass over the parts
+    where the splat's d + 1 = 4 entries a point average
+    ``ops.segment.SPLIT`` or more a vertex (``run_sums``), and conv1, conv2
+    and the classifier."""
     from hplflownet_tpu_torch.ops.segment import SPLIT
     long = sum(4 * n_points >= SPLIT * c for c in capacities)
     return {"stencil_gather_matmul": len(capacities),
-            "rank_reduce": len(capacities) + long, "dense_gemm": 3}
+            "rank_reduce": len(capacities) + long, "dense_gemm": 3,
+            "slice_points": len(capacities)}
 
 
 def _segment_model(device):
@@ -2422,6 +2459,116 @@ def phase_segment(results):
     results["segment"] = {"launches": launches, "calls": per_call,
                           "cases": cases, "vertices": vertices,
                           "max_rel": rel, "ms_per_cloud": ms}
+
+
+# the slice kernel on the calls of real forwards: name, model, points,
+# capacities, which of the forward's slice calls (the flagship slices its
+# coarsest scale first): SPLATNet3D's BCL 3 (98304 points onto 8704 x 256,
+# no bias), the flagship-98k decoder's up0 (98304 points onto 90752 x 1024,
+# bias; flowbench's capacities) and the flagship-8k's up6 (256 points onto
+# 128 x 128: the smallest, where one launch saves least)
+FLAGSHIP_98K_CAPACITIES = [90752, 72448, 20992, 4736, 1152, 384, 128]
+SLICE_CASES = (("SPLATNet3D bcl3", "SPLATNet3D", SEG_POINTS, SEG_CAPACITIES, 2),
+               ("flagship-98k up0", "HPLFlowNet", 98304,
+                FLAGSHIP_98K_CAPACITIES, 6),
+               ("flagship-8k up6", "HPLFlowNet", NUM_POINTS, CAPACITIES, 0))
+
+
+def _slice_calls(model_name, n_points, capacities):
+    """The arguments of every ``slice_points`` call of a bf16 forward on
+    synthetic clouds (seed 0), in order."""
+    import torch
+    from hplflownet_tpu_torch.lattice.capacity import synthetic_frustum_clouds
+    from hplflownet_tpu_torch.pipeline import (flow_forward, make_lattice_spec,
+                                               segment_forward)
+    from hplflownet_tpu_torch.tools.step_calls import recorded_calls
+    from hplflownet_tpu_torch.tools.timing import model_case
+    if model_name == "SPLATNet3D":
+        model = _segment_model(DEVICE)
+        spec = make_lattice_spec(SEG_SFM, capacities)
+        pts = synthetic_frustum_clouds(1, n_points, seed=0)[0][0]
+
+        def fwd():
+            return segment_forward(model, spec, pts)
+    else:
+        model, spec, pc1, pc2 = model_case(model_name, n_points, DEVICE,
+                                           capacities=capacities)
+
+        def fwd():
+            with torch.inference_mode():
+                return flow_forward(model, spec, pc1, pc2, adjoint_plans=False)
+    with recorded_calls() as calls:
+        fwd()
+    return [a for name, a, kw, _ in calls if name == "slice_points"]
+
+
+def phase_slice(results):
+    """``slice_points`` (csrc/slice_points.cu) at SLICE_CASES, on the
+    arguments real forwards give it, against its plain version (the
+    composition the BCL ran before: d + 1 gathers, float32 products and
+    sums, bias, cast): equal by ``torch.equal``, a rerun bit for bit, device
+    ms (a replayed CUDA graph) and ms through the wrapper, the bytes bound
+    (the result written once, each referenced vertex row and the ids and
+    weights read once), the plain composition's device ms, which the kernel
+    must beat at every case, and ``index_select`` of the point's rows (the
+    gather alone, a library yardstick)."""
+    import torch
+    from hplflownet_tpu_torch.kernels.slice import slice_points, slice_points_plain
+    rows, forwards = [], {}
+    for name, model_name, n_points, capacities, index in SLICE_CASES:
+        key = (model_name, n_points, tuple(capacities))
+        if key not in forwards:
+            forwards[key] = _slice_calls(model_name, n_points, capacities)
+        table, bary, ids, bias, out_dt = forwards[key][index]
+        bias = None if bias is None else bias.detach()
+
+        def run():
+            return slice_points(table, bary, ids, bias, out_dt)
+
+        def plain():
+            return slice_points_plain(table, bary, ids, bias, out_dt)
+        got, again, want = run(), run(), plain()
+        sync()
+        word = torch.int16 if got.element_size() == 2 else torch.int32
+        if not torch.equal(got.view(word), again.view(word)):
+            raise AssertionError(f"slice_points {name}: rerun differs")
+        if not torch.equal(got, want):
+            raise AssertionError(f"slice_points {name}: not equal to its plain "
+                                 f"version (max abs err "
+                                 f"{float((got.float() - want.float()).abs().max()):.3e})")
+        (h, c), (n, d1) = table.shape, ids.shape
+        present = ids[ids >= 0]
+        rows_read = int(torch.unique(present.clamp(max=h - 1)).numel())
+        nbytes = (rows_read * c * table.element_size() + n * d1 * 8
+                  + n * c * got.element_size() + (0 if bias is None else 4 * c))
+        bms, by = bound_ms(nbytes, 2.0 * present.numel() * c, "float32")
+        flat = ids.clamp(0, h - 1).reshape(-1)
+        row = dict(case=name, dtype="bfloat16",
+                   shape=f"N={n} d1={d1} H={h} C={c}"
+                         f"{' bias' if bias is not None else ''}",
+                   out=str(out_dt).replace("torch.", ""), max_abs_err=0.0,
+                   ms=cuda_ms(run), device_ms=device_ms(run), bound_ms=bms,
+                   bound_by=by, plain_ms=cuda_ms(plain, reps=3),
+                   plain_device_ms=device_ms(plain),
+                   library_ms=cuda_ms(lambda: table.index_select(0, flat)),
+                   library_device_ms=device_ms(
+                       lambda: table.index_select(0, flat)))
+        rows.append(row)
+        log(f"slice_points {name} ({row['shape']}, {row['out']} out): device "
+            f"{row['device_ms']:.4f} ms ({row['ms']:.4f} through the wrapper), "
+            f"bound {bms:.4f} ms by {by} ({100 * bms / row['device_ms']:.1f}%), "
+            f"plain composition {row['plain_device_ms']:.4f} ms device "
+            f"({row['plain_device_ms'] / row['device_ms']:.1f}x), index_select "
+            f"{row['library_device_ms']:.4f} ms; equal to plain, rerun bit for bit")
+        del table, bary, ids, bias, got, again, want
+    del forwards
+    slow = [r["case"] for r in rows if r["device_ms"] >= r["plain_device_ms"]]
+    if DEVICE == "cuda" and slow:
+        raise AssertionError(f"slice_points loses to the plain composition at {slow}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    results["slice"] = rows
+    return rows
 
 
 def phase_native(results):
@@ -2751,6 +2898,8 @@ def kernels_line(results) -> dict:
          tools, {}),
         ("dense_gemm", "dense", "conv2", "none (XLA's dot, "
          "hplflownet_tpu/ops/bcl.py:416)", train, fwd),
+        ("slice_points", "slice", "SPLATNet3D bcl3", "none (XLA's gathers, "
+         "hplflownet_tpu/ops/bcl.py:290)", train, fwd),
     ]
     out = []
     for name, kind, case, replaces, launches, launches_fwd in entries:
@@ -2760,11 +2909,18 @@ def kernels_line(results) -> dict:
             source=f"hplflownet_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches[name],
             **{k: row[k] for k in keys},
-            **{k: row[k] for k in ("device_ms", "library_device_ms") if k in row},
+            **{k: row[k] for k in ("device_ms", "library_device_ms",
+                                   "plain_device_ms") if k in row},
             shape=row["shape"] + " bf16",
             max_abs_err_all=max(r["max_abs_err"] for r in results[kind]),
             **({"launches_forward": launches_fwd[name]}
                if name in launches_fwd else {})))
+    # the slice kernel at each of its cases: device ms, bound, plain device ms
+    for row in out:
+        if row["name"] == "slice_points":
+            row["cases"] = {r["case"]: {k: r[k] for k in (
+                "shape", "device_ms", "bound_ms", "plain_device_ms")}
+                for r in results["slice"]}
     # the later paths' launches, each counted over its own run
     shallow, driver = results.get("shallow", {}), results.get("driver", {})
     dp, synthetic = results.get("dp", {}), results.get("synthetic", {})
@@ -2849,6 +3005,7 @@ def main(argv=None) -> int:
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: sampled(phase_kernels)),
               ("dense", lambda: phase_dense(results)),
+              ("slice", lambda: phase_slice(results)),
               ("reference", phase_reference),
               ("main path", lambda: phase_main_path(results)),
               ("train", lambda: phase_train(results)),

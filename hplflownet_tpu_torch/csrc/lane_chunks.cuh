@@ -1,10 +1,10 @@
 // Row chunks of the warp-per-row kernels (rank_reduce.cu and
-// stencil_tap_tables_sum.cu): a lane loads VB bytes of a row (16, 8, 4 or
-// 2) as 32-bit words, takes its V = VB / sizeof(T) elements out as their
-// exact float32 images, and stores V float sums with the widest stores the
-// address allows.
+// stencil_tap_tables_sum.cu) and of slice_points.cu: a lane loads VB bytes
+// of a row (16, 8, 4 or 2) as 32-bit words, takes its V = VB / sizeof(T)
+// elements out as their exact float32 images, and stores V float sums with
+// the widest stores the address allows.
 //
-// Included by rank_reduce.cu and stencil_tap_tables_sum.cu.
+// Included by rank_reduce.cu, stencil_tap_tables_sum.cu and slice_points.cu.
 
 #pragma once
 

@@ -19,7 +19,9 @@ Every kernel replaces one Pallas TPU kernel of ``hplflownet_tpu``:
 
 ``dense.dense_gemm`` (csrc/dense_gemm.cu) replaces none: the dense layers'
 product, with its bias, activation and cast, which the JAX package leaves
-to XLA's ``dot``.
+to XLA's ``dot``.  Nor does ``slice.slice_points`` (csrc/slice_points.cu):
+the slice back to points, with the BCL's slice bias and cast, which the JAX
+package leaves to XLA's gathers.
 
 The two stencil kernels walk a stencil plan per neighbour table
 (``stencil_plan.py``: the row order and per-tap vertex lists, plain
@@ -78,17 +80,18 @@ def backward_like_forward(backward):
 
 
 def main_path_wrappers() -> dict:
-    """The wrappers of kernels 1-4 and the dense layers' kernel, the ones
-    the forward and the train step launch, by name."""
+    """The wrappers of kernels 1-4, the dense layers' kernel and the slice
+    kernel, the ones the forward and the train step launch, by name."""
     from .dense import dense_gemm
     from .dkernel import stencil_dkernel
+    from .slice import slice_points
     from .splat import rank_reduce
     from .stencil import stencil_gather_matmul
     from .tap_tables import stencil_tap_tables_sum
     return {"stencil_gather_matmul": stencil_gather_matmul,
             "rank_reduce": rank_reduce, "stencil_dkernel": stencil_dkernel,
             "stencil_tap_tables_sum": stencil_tap_tables_sum,
-            "dense_gemm": dense_gemm}
+            "dense_gemm": dense_gemm, "slice_points": slice_points}
 
 
 def count_launches(fn, wrappers: dict | None = None):

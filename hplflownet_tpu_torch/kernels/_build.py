@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
            "stencil_tap_tables_sum", "blocked_rank_reduce", "row_take",
-           "rank_partial", "dense_gemm")
+           "rank_partial", "dense_gemm", "slice_points")
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

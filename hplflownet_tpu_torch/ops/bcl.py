@@ -18,8 +18,10 @@ gather or a deterministic kernel, never ``index_add_`` / ``scatter_add_``.
   by the caller, gives both kernels their row order and tap lists; the
   input gradient reuses the forward's row order.
 * ``slice_to_points``: each point's d+1 vertices, barycentric-weighted;
-  absent vertices (id -1) get weight zero.  Its adjoint is an unnormalised
-  splat of the cotangent through the same plan (``rank_reduce``).
+  absent vertices (id -1) get weight zero.  One ``slice_points`` launch
+  with the BCL's slice bias and output cast fused; its adjoint is an
+  unnormalised splat of the cotangent through the same plan
+  (``rank_reduce``).
 * ``dense``: a dense layer (the BCL's pointwise convs, the point MLPs, the
   correlation's MLP and displacement filter): one ``dense_gemm`` launch with
   the bias, activation and output cast in its epilogue; its backward is the
@@ -50,6 +52,7 @@ from ..device import device_constant, scalar
 from ..kernels import backward_like_forward, plain_forced
 from ..kernels.dense import dense_gemm, gemm_weight, uses_kernel
 from ..kernels.dkernel import stencil_dkernel
+from ..kernels.slice import slice_points
 from ..kernels.stencil import stencil_gather_matmul
 from ..kernels.stencil_plan import StencilPlan
 from ..utils.profiling import span
@@ -282,61 +285,69 @@ def blur(splatted_pad: torch.Tensor,   # (H + 1, C_in), row 0 zero
     return gather_parts(y, neighbors.shape[1], shard)
 
 
-def _slice_impl(blurred, bary, offsets):
-    h = blurred.shape[0]
-    out = None
-    for r in range(offsets.shape[1]):
-        safe = offsets[:, r].clamp(0, h - 1).long()
-        term = bary[:, r, None] * blurred[safe].to(torch.float32)
-        out = term if out is None else out + term
-    return out
-
-
 class _Slice(torch.autograd.Function):
-    """``slice_to_points`` of the JAX package (bcl.py:290-337)."""
+    """``slice_to_points`` of the JAX package (bcl.py:290-337), with the
+    BCL's slice bias and output cast, through ``slice_points``.
+
+    The backward gives what autograd formed for the composition it
+    replaces (the float32 slice, ``+ bias``, ``.to(out_dtype)``): the
+    cotangent in float32; the bias gradient its float32 sum over points.
+    """
 
     @staticmethod
-    def forward(ctx, blurred, out_barycentric, out_lattice_offset, plan):
+    def forward(ctx, blurred, out_barycentric, out_lattice_offset, plan, bias,
+                out_dtype):
         ctx.plain_kernels = plain_forced()
-        bary = torch.where(out_lattice_offset >= 0, out_barycentric, 0.0)
         ctx.plan = plan
-        ctx.save_for_backward(blurred, out_barycentric, out_lattice_offset)
-        return _slice_impl(blurred, bary, out_lattice_offset)
+        ctx.has_bias = bias is not None
+        ctx.blurred_dtype = blurred.dtype
+        # the weights' gradient alone reads the table and the ids
+        ctx.save_for_backward(out_barycentric, *(
+            (blurred, out_lattice_offset) if ctx.needs_input_grad[1] else ()))
+        return slice_points(blurred.contiguous(), out_barycentric.contiguous(),
+                            out_lattice_offset.contiguous(), bias, out_dtype)
 
     @staticmethod
     @backward_like_forward
     def backward(ctx, g):
-        blurred, bary, offsets = ctx.saved_tensors
-        d_blurred = d_bary = None
+        bary, *table_and_ids = ctx.saved_tensors
+        g32 = g.to(torch.float32)
+        d_blurred = d_bary = d_bias = None
         if ctx.needs_input_grad[0]:
             if ctx.plan is None:
                 raise ValueError("slice's gradient needs the scale's splat plan")
             # the unnormalised splat of the cotangent through the same plan
-            d_blurred = _wr_forward(False, ctx.plan, g.to(blurred.dtype),
-                                    bary).to(blurred.dtype)
+            dt = ctx.blurred_dtype
+            d_blurred = _wr_forward(False, ctx.plan, g.to(dt), bary).to(dt)
         if ctx.needs_input_grad[1]:
+            blurred, offsets = table_and_ids
             h = blurred.shape[0]
             d_bary = torch.stack(
-                [torch.sum(g * blurred[offsets[:, r].clamp(0, h - 1).long()],
+                [torch.sum(g32 * blurred[offsets[:, r].clamp(0, h - 1).long()],
                            dim=1) for r in range(offsets.shape[1])], dim=1)
             d_bary = torch.where(offsets >= 0, d_bary, 0.0)
-        return d_blurred, d_bary, None, None
+        if ctx.has_bias and ctx.needs_input_grad[4]:
+            d_bias = g32.sum(dim=0)
+        return d_blurred, d_bary, None, None, d_bias, None
 
 
 def slice_to_points(blurred: torch.Tensor,             # (H, C)
                     out_barycentric: torch.Tensor,     # (N, d1) f32
                     out_lattice_offset: torch.Tensor,  # (N, d1) int32
                     plan: ReducePlan | None = None,    # the scale's splat plan
-                    ) -> torch.Tensor:
-    """Barycentric combination of each point's d+1 vertices -> (N, C) f32.
+                    bias: torch.Tensor | None = None,  # (C,) f32
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Barycentric combination of each point's d+1 vertices, plus ``bias``
+    -> (N, C) in ``out_dtype`` (float32 sums, then the cast).
 
     Id -1 marks an absent vertex: an invalid point (zero weight already) or
-    a valid point whose vertex overflowed capacity (nonzero weight) — the
+    a valid point whose vertex overflowed capacity (nonzero weight) — a
     clamp would alias the latter onto row 0, a real vertex, so its weight
-    is zeroed here.  ``plan`` (the splat plan of the same cloud and scale)
-    is what the gradient of ``blurred`` needs.
+    is zeroed.  ``plan`` (the splat plan of the same cloud and scale) is
+    what the gradient of ``blurred`` needs.
     """
-    return _Slice.apply(blurred, out_barycentric, out_lattice_offset, plan)
+    return _Slice.apply(blurred, out_barycentric, out_lattice_offset, plan,
+                        bias, out_dtype)
 
 
 class BilateralConv(nn.Module):
@@ -413,8 +424,7 @@ class BilateralConv(nn.Module):
         if not self.do_slice:
             return x
         with span("model.slice"):
-            sliced = slice_to_points(x, out_barycentric, out_lattice_offset,
-                                     out_splat_plan)
-            if self.use_bias:
-                sliced = sliced + self.slice_bias
-            return sliced.to(dt)
+            return slice_to_points(x, out_barycentric, out_lattice_offset,
+                                   out_splat_plan,
+                                   self.slice_bias if self.use_bias else None,
+                                   dt)

@@ -10,9 +10,11 @@ returns, per kernel, every distinct shape with its launches per forward and
 per step and the arguments of its first call in the step, so that a kernel
 can be timed on the inputs the step really gives it.
 
-:class:`recorded_calls` records every call the ops make to kernels 1-4
-and the dense layers' kernel with a copy of its output, and :func:`check_calls` runs each again with
-the plain versions forced and holds the two to a limit.
+:class:`recorded_calls` records every call the ops make to kernels 1-4,
+the dense layers' kernel and the slice kernel with a copy of its output,
+and :func:`check_calls` runs each again with the plain versions forced and
+holds the two to a limit (the slice kernel, whose arithmetic is the plain
+version's, to equality).
 
 ``chip_smoke.py``, ``tools.kernel_ab`` and the lattice mode of
 ``tools.dryrun_multiprocess`` use this module; the model never reads it.
@@ -40,7 +42,11 @@ SITES = {"stencil_gather_matmul": ("ops.bcl", "ops.corr"),
          "rank_reduce": ("ops.segment",),
          "stencil_dkernel": ("ops.bcl", "ops.corr"),
          "stencil_tap_tables_sum": ("ops.corr",),
-         "dense_gemm": ("ops.bcl",)}
+         "dense_gemm": ("ops.bcl",),
+         "slice_points": ("ops.bcl",)}
+
+# kernels whose every call must equal its plain version (``torch.equal``)
+EXACT = ("slice_points",)
 
 
 def shape_key(name: str, args: dict) -> dict:
@@ -122,7 +128,8 @@ def check_calls(calls, tol: dict) -> dict:
     """Each recorded call again with the plain versions forced: -> per
     kernel the number of calls and shapes and the worst max|d| /
     max|plain|; raises past ``tol`` (``{"bf16": x, "f32": y}``, by the
-    output's dtype) or on a shape that differs."""
+    output's dtype), on a call of an EXACT kernel that is not equal, or on
+    a shape that differs."""
     from ..kernels import main_path_wrappers, plain_kernels
     wrappers = main_path_wrappers()
     out = {}
@@ -133,6 +140,10 @@ def check_calls(calls, tol: dict) -> dict:
         d = float((got.float() - want.float()).abs().max()
                   / want.float().abs().max().clamp_min(1e-30))
         shape = (tuple(got.shape), str(got.dtype))
+        if name in EXACT and not torch.equal(got, want):
+            raise AssertionError(f"{name} call at output {shape}: not equal "
+                                 f"to its plain version (max|d| / max|plain| "
+                                 f"{d:.3e})")
         if d > limit or got.shape != want.shape:
             raise AssertionError(f"{name} call at output {shape}: max|d| / "
                                  f"max|plain| {d:.3e} > {limit}")

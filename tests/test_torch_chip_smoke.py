@@ -17,10 +17,11 @@ KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 KERNELS = ["stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
            "stencil_tap_tables_sum", "blocked_rank_reduce", "row_take",
-           "rank_partial", "dense_gemm"]
+           "rank_partial", "dense_gemm", "slice_points"]
 TRAIN_KERNELS = KERNELS[:4]
-# what a forward and a train step launch: kernels 1-4 and the dense layers'
-PATH_KERNELS = TRAIN_KERNELS + ["dense_gemm"]
+# what a forward and a train step launch: kernels 1-4, the dense layers'
+# and the slice kernel
+PATH_KERNELS = TRAIN_KERNELS + ["dense_gemm", "slice_points"]
 
 
 @pytest.fixture
@@ -43,6 +44,12 @@ def small_cpu_smoke(monkeypatch):
         ("bcn1_ conv1", 200, 64, 64, None, "bfloat16"),
         ("corr1 h1 x 15", 450, 32, 32, 0.1, "bfloat16"),
         ("conv4 head", 300, 32, 3, None, "float32")))
+    monkeypatch.setattr(chip_smoke, "SLICE_CASES", (
+        ("SPLATNet3D bcl3", "SPLATNet3D", 128, [640, 640, 640, 640, 256], 2),
+        ("flagship-98k up0", "HPLFlowNet", 128,
+         [1024, 2048, 2048, 1024, 512, 256, 128], 6),
+        ("flagship-8k up6", "HPLFlowNet", 128,
+         [1024, 2048, 2048, 1024, 512, 256, 128], 0)))
     return chip_smoke
 
 
@@ -110,10 +117,19 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
     assert all(r["max_abs_err"] == 0 for r in rows)          # plain on the CPU
     assert all(r["device_ms"] > 0 and r["library_device_ms"] > 0
                and r["plain_ms"] > 0 and r["bound_ms"] > 0 for r in rows)
+    # the slice kernel on the calls of real forwards, timed four ways
+    rows = cs.phase_slice(results)
+    assert [r["case"] for r in rows] == [c[0] for c in cs.SLICE_CASES]
+    assert [r["shape"].split()[2:] for r in rows] == [
+        ["H=640", "C=256"], ["H=1024", "C=1024", "bias"], ["H=128", "C=128", "bias"]]
+    assert all(r["device_ms"] > 0 and r["plain_device_ms"] > 0
+               and r["library_device_ms"] > 0 and r["bound_by"] == "bytes"
+               for r in rows)
     cs.phase_reference()
     results["launches"] = dict(zip(TRAIN_KERNELS, (57, 25, 31, 5)),
-                               dense_gemm=45)
-    results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18}
+                               dense_gemm=45, slice_points=7)
+    results["forward_launches"] = {"stencil_gather_matmul": 31, "rank_reduce": 18,
+                                   "slice_points": 7}
     results["fused_launches"] = {"blocked_rank_reduce": 25, "rank_reduce": 0}
     results["fused_forward_launches"] = {"blocked_rank_reduce": 18,
                                          "rank_reduce": 0}
@@ -130,7 +146,7 @@ def test_kernel_and_reference_phases_and_the_kernels_line(small_cpu_smoke):
         assert KEYS <= set(k)
         timed = k["name"] in ("rank_reduce", "stencil_tap_tables_sum",
                               "blocked_rank_reduce", "row_take", "rank_partial",
-                              "dense_gemm")
+                              "dense_gemm", "slice_points")
         assert ("device_ms" in k) == timed
         assert ("library_device_ms" in k) == timed
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
@@ -148,6 +164,11 @@ def test_train_phase_runs_and_launches_nothing_on_the_cpu(small_cpu_smoke):
     results = {}
     small_cpu_smoke.phase_train(results)
     assert results["launches"] == dict.fromkeys(PATH_KERNELS, 0)
+    # every kernel call of a step replayed against its plain version, the
+    # slice kernel's seven among them
+    assert set(results["train_calls"]) == set(PATH_KERNELS)
+    assert results["train_calls"]["slice_points"]["calls"] == \
+        small_cpu_smoke.FLAGSHIP_SLICES
     assert results["train_ms"] > 0
 
 

@@ -43,6 +43,7 @@ def test_large_and_native_phases(small_cpu_smoke):
     assert large["calls"]["stencil_gather_matmul"]["calls"] > 0
     # every dense product of the forward is replayed against its plain version
     assert large["calls"]["dense_gemm"]["calls"] == small_cpu_smoke.FLAGSHIP_DENSE
+    assert large["calls"]["slice_points"]["calls"] == small_cpu_smoke.FLAGSHIP_SLICES
     assert large["calls"]["rank_reduce"]["calls"] > 0
     assert large["plain"]["points"] == 128 and large["plain"]["max_rel"] == 0.0
     small_cpu_smoke.phase_native(results)
@@ -58,7 +59,8 @@ def test_segment_phase(small_cpu_smoke, monkeypatch):
     caps = [16384, 12288, 7168, 1536, 384]
     full = small_cpu_smoke.segment_launches(small_cpu_smoke.SEG_POINTS,
                                             small_cpu_smoke.SEG_CAPACITIES)
-    assert full == {"stencil_gather_matmul": 5, "rank_reduce": 8, "dense_gemm": 3}
+    assert full == {"stencil_gather_matmul": 5, "rank_reduce": 8, "dense_gemm": 3,
+                    "slice_points": 5}
     monkeypatch.setattr(small_cpu_smoke, "SEG_POINTS", 4096)
     monkeypatch.setattr(small_cpu_smoke, "SEG_CAPACITIES", caps)
     results = {}
@@ -69,7 +71,8 @@ def test_segment_phase(small_cpu_smoke, monkeypatch):
     assert seg["cases"] == {"rank_reduce parts": 1, "dense_gemm K=960": 1,
                             "stencil_gather_matmul 256->256": 2}
     calls = {k: v["calls"] for k, v in seg["calls"].items()}
-    assert calls == {"stencil_gather_matmul": 5, "rank_reduce": 6, "dense_gemm": 3}
+    assert calls == {"stencil_gather_matmul": 5, "rank_reduce": 6, "dense_gemm": 3,
+                     "slice_points": 5}
     assert all(0 < v <= caps[i] for i, v in enumerate(seg["vertices"]))
     assert seg["max_rel"] == 0.0 and seg["ms_per_cloud"] > 0
 
@@ -77,10 +80,16 @@ def test_segment_phase(small_cpu_smoke, monkeypatch):
 def test_main_path_phase(small_cpu_smoke):
     results = {}
     small_cpu_smoke.phase_main_path(results)
-    # what the phase counts: kernels 1 and 2 and the dense layers' kernel
+    # what the phase counts: kernels 1 and 2, the dense layers' kernel and
+    # the slice kernel
     assert results["forward_launches"] == dict.fromkeys(
         small_cpu_smoke.FORWARD_KERNELS, 0)
-    assert "dense_gemm" in results["forward_launches"]
+    assert {"dense_gemm", "slice_points"} <= set(results["forward_launches"])
+    # every kernel call of the forward replayed against its plain version
+    assert results["main_calls"]["slice_points"]["calls"] == \
+        small_cpu_smoke.FLAGSHIP_SLICES
+    assert results["main_calls"]["dense_gemm"]["calls"] == \
+        small_cpu_smoke.FLAGSHIP_DENSE
     assert results["pairs_per_s"] > 0 and results["plain_pairs_per_s"] > 0
 
 
@@ -95,6 +104,7 @@ def test_lattice_phase(small_cpu_smoke):
     for per_call in lat["calls"]:
         assert per_call["stencil_gather_matmul"]["calls"] > 0
         assert per_call["rank_reduce"]["calls"] > 0
+        assert per_call["slice_points"]["calls"] == small_cpu_smoke.FLAGSHIP_SLICES
 
 
 def test_op_profile_phase_and_the_phase_order(small_cpu_smoke):

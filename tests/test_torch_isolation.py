@@ -56,8 +56,8 @@ def test_port_and_chip_smoke_import_without_jax():
     n = int(r.stdout.split()[1])
     # every subpackage and module was walked, the later slices' too (79
     # since tools.op_profile went, 80 with kernels.dense, 81 with
-    # models.splatnet)
-    assert n >= 81, r.stdout
+    # models.splatnet, 82 with kernels.slice)
+    assert n >= 82, r.stdout
     for mod in ("train.step", "train.schedule", "models.losses", "models.init",
                 "models.hplflownet_shallow", "models.splatnet", "data", "data.io",
                 "data.transforms",
@@ -66,7 +66,7 @@ def test_port_and_chip_smoke_import_without_jax():
                 "utils.config", "utils.logging", "utils.profiling", "main",
                 "kernels.dkernel", "kernels.tap_tables", "kernels.rank_fused",
                 "kernels.take", "kernels.rank_partial", "kernels.stencil_plan",
-                "kernels.dense",
+                "kernels.dense", "kernels.slice",
                 "ops.dispatch",
                 "tools", "tools.timing", "tools.microbench", "tools.gather_lab",
                 "tools.rank_partial_lab", "tools.rank_cases", "tools.tap_cases",

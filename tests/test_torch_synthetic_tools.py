@@ -214,7 +214,7 @@ def test_bench_line_at_a_toy_size():
     assert set(res["launches"]) == {"forward", "step"}
     assert set(res["launches"]["step"]) == {
         "stencil_gather_matmul", "rank_reduce", "stencil_dkernel",
-        "stencil_tap_tables_sum", "dense_gemm"}
+        "stencil_tap_tables_sum", "dense_gemm", "slice_points"}
 
 
 def test_bench_measure_counts_the_pairs_vertices():

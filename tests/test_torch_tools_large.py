@@ -69,7 +69,7 @@ def test_large_cloud_bench_on_the_cpu(capsys):
     assert row["ms_per_pair"] > 0 and len(row["ms_reps"]) == 2
     assert row["peak_mib"] is None and row["clock"] == "host clock"
     assert row["launches"] == {"stencil_gather_matmul": 0, "rank_reduce": 0,
-                               "dense_gemm": 0}
+                               "dense_gemm": 0, "slice_points": 0}
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and '"points": 256' in lines[0]
 
